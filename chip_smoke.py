@@ -16,10 +16,20 @@ Builds the CUDA kernels and the native library from this checkout, then:
      kernel runs on the main path even if the mix takes only the
      candidate branch;
   6. serves 16 of the queries on the CPU and compares them hit for hit;
-  7. checks each kernel's launch count from steps 3-5, then replays one
-     call of each kernel from that path (the residency decode; the
-     head-band batch's combine) against its plain PyTorch version on the
-     card, and times both.
+  7. checks each kernel's launch count from steps 3-5 (and that the mix's
+     single-term rows took the single route), then replays one call of
+     each kernel from that path (the residency decode; the head-band
+     batch's combine) against its plain PyTorch version on the card, and
+     times both;
+  8. packed serving: a second reader over the same segment, built with
+     RUCENE_DECODED=0 (no decoded planes), serves the mix the same way
+     with the plain decode twins disabled, so every block decode is the
+     scoring decode kernel; its launches and the single route are counted
+     on this path alone, and 16 of its TopDocs must equal the decoded
+     run's bit for bit;
+  9. replays the scoring decode of the first packed batch's single-term
+     rows (their distinct blocks, fids and cache) against its plain
+     version on the card: docs, freqs and cval bit-equal; times both.
 Any failure raises. The last two lines are the kernels' JSON record and the
 device line; the card's name and power limit come on the line before them.
 """
@@ -39,6 +49,7 @@ K = 100
 BATCH = 256
 N_QUERIES = 512
 K1_SOURCE = "rucene_tpu_torch/csrc/decode.cu"
+K2_SOURCE = K1_SOURCE
 K3_SOURCE = "rucene_tpu_torch/csrc/combine.cu"
 
 
@@ -169,6 +180,91 @@ def serve(searcher, queries, depth: int = 3, min_s: float = 5.0, max_reps: int =
     return reps * len(queries) / wall, results
 
 
+def serve_packed(packed, queries, dev, card, split):
+    """Phase 8: a reader over ``packed`` whose segment is built with
+    RUCENE_DECODED=0, serving the mix with the plain decode twins replaced
+    by a raise. Counts are reset just before and read just after. Returns
+    (searcher, qps, last pass's TopDocs, scoring-decode launches)."""
+    from rucene_tpu_torch import IndexSearcher
+    from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
+    from rucene_tpu_torch.ops import cuda_decode
+    from rucene_tpu_torch.util.metrics import METRICS
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain decode twin ran on the card during packed serving")
+
+    twins = (cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain)
+    prev = os.environ.get("RUCENE_DECODED")
+    METRICS.reset()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_decode.decode_blocks_plain = cuda_decode.decode_score_blocks_plain = refuse
+    os.environ["RUCENE_DECODED"] = "0"
+    try:
+        searcher = IndexSearcher(IndexReader([SegmentSnapshot("bench", packed)]), device=dev)
+        pdev = searcher.reader.leaves[0].device
+    finally:
+        if prev is None:
+            os.environ.pop("RUCENE_DECODED")
+        else:
+            os.environ["RUCENE_DECODED"] = prev
+    try:
+        if pdev.docs_dec is not None or pdev.freqs_dec is not None or pdev.norm_dec is not None:
+            raise AssertionError("the packed reader built decoded planes")
+        for i in range(0, len(queries), BATCH):  # warm pass
+            searcher.search_batch(queries[i : i + BATCH], k=K)
+        qps, results = serve(searcher, queries)
+    finally:
+        cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain = twins
+    counters = METRICS.snapshot()["counters"]  # the packed path ends here
+    k2 = counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
+    log(f"packed mix: {qps:.1f} QPS ({len(queries)} queries, batch {BATCH}, k={K}) on {card}; "
+        f"packed words {pdev.data.numel() * 4 / 2**20:.0f} MiB, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("packed routes: " + " ".join(f"{k}={v}" for k, v in sorted(counters.items())))
+    if k2 <= 0:
+        raise AssertionError("the scoring decode kernel never launched on the packed path")
+    if split and counters.get("route.single", 0) <= 0:
+        raise AssertionError("no packed row took the single-term route")
+    if counters.get(cuda_decode.LAUNCH_COUNTER, 0):
+        raise AssertionError("the packed reader launched the residency decode")
+    return searcher, qps, results, k2
+
+
+def single_k2_call(searcher, batch):
+    """The scoring decode call the searcher makes for ``batch``'s single-term
+    rows on its packed leaf: (data, off, dbits, fbits, base, count, fid,
+    cache) over the distinct blocks of those rows' work list."""
+    from rucene_tpu_torch.search import flat_tables
+
+    plans = [searcher._plan_for(q) for q in batch]
+    rqs = [p.rq for p in plans]
+    doc_freqs, stats = searcher._gather_stats(rqs, plans)
+    b = len(rqs)
+    weight, occur, _, _ = flat_tables.build_clause_tables(
+        rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
+    )
+    idx = [i for i, rq in enumerate(rqs)
+           if searcher._pure_row(rq, weight[i]) and len(rq.clauses) == 1]
+    rqs = [rqs[i] for i in idx]
+    plans = [plans[i] for i in idx]
+    weight, occur, _, _ = flat_tables.build_clause_tables(
+        rqs, searcher.similarity, doc_freqs, stats, len(rqs), 1, plans=plans
+    )
+    leaf = searcher.reader.leaves[0]
+    bs, bc, fid = flat_tables.build_leaf_tables(leaf, rqs, len(rqs), 1, plans=plans)
+    work = flat_tables.build_flat_work(bs, bc, weight, fid, occur)
+    dd = flat_tables.dedupe_work(work[0], work[5], work[3])
+    ublock, ufid = (work[0], work[3]) if dd is None else (dd[0], dd[2])
+    dev = leaf.device
+    blk = torch.from_numpy(ublock).to(dev.device).long()
+    cache = flat_tables.build_leaf_cache(leaf, searcher.similarity, stats)
+    return (
+        dev.data, dev.blk_off[blk], dev.blk_doc_bits[blk], dev.blk_freq_bits[blk],
+        dev.blk_base[blk], dev.blk_count[blk], torch.from_numpy(ufid).to(dev.device),
+        torch.from_numpy(cache).to(dev.device),
+    )
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -186,6 +282,7 @@ def main() -> int:
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
     from rucene_tpu_torch.search import executor, flat_tables
+    from rucene_tpu_torch.search import searcher as searcher_mod
     from rucene_tpu_torch.util.metrics import METRICS
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
@@ -280,6 +377,9 @@ def main() -> int:
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    split = n_docs >= searcher_mod.SPLIT_MIN_DOCS  # else mixed batches stay whole
+    if split and counters.get("route.single", 0) <= 0:
+        raise AssertionError("no mix row took the single-term route on the decoded reader")
 
     # 6. 16 queries on the CPU, hit for hit
     sample_idx = list(range(0, N_QUERIES, N_QUERIES // 16))[:16]
@@ -335,16 +435,47 @@ def main() -> int:
     k3_ms = cuda_ms(lambda: cuda_combine.combine_lanes(*args, *out_k))
     k3_plain_ms = cuda_ms(lambda: cuda_combine.combine_lanes_plain(*args, *out_p))
 
+    del q, cb, args, out_k, out_p, target, sc, _valid
+
+    # 8. packed serving at full size: a second reader over the same segment
+    packed_searcher, packed_qps, packed_results, k2_launches = serve_packed(
+        packed, queries, dev, card, split
+    )
+    for i in sample_idx:
+        got_td, want_td = packed_results[i], mix_results[i]
+        if got_td.total_hits != want_td.total_hits or got_td.score_docs != want_td.score_docs:
+            raise AssertionError(f"packed query {i} differs from the decoded run")
+    log("16 packed queries equal the decoded run's bit for bit (docs, f32 scores, total_hits)")
+
+    # 9. the scoring decode of the first packed batch's single-term rows
+    # against its plain version on the card
+    k2_args = single_k2_call(packed_searcher, queries[:BATCH])
+    got = cuda_decode.decode_score_blocks(*k2_args)
+    want = cuda_decode.decode_score_blocks_plain(*k2_args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("docs", "freqs", "cval"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"scoring decode kernel {name} differ from the twin")
+    k2_err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    k2_ms = cuda_ms(lambda: cuda_decode.decode_score_blocks(*k2_args))
+    k2_plain_ms = cuda_ms(lambda: cuda_decode.decode_score_blocks_plain(*k2_args))
+    log(f"scoring decode kernel bit-equal to the twin over {k2_args[1].shape[0]} distinct blocks: "
+        f"{k2_ms:.4f} ms, twin {k2_plain_ms:.4f} ms")
+
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
          "launches": launches["decode_blocks"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
+         "replaces": "rucene_tpu/ops/pallas_decode.py:330",
+         "launches": k2_launches, "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
          "launches": launches["combine_lanes"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms},
-    ], "qps": qps, "n_docs": n_docs}))
+    ], "qps": qps, "packed_qps": packed_qps, "n_docs": n_docs}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,14 @@
 """Device-resident segment tensors (counterpart of rucene_tpu/codec/device.py).
 
-A DeviceSegment holds one segment's block tables, live mask and decoded
-postings residency as torch tensors on one device. The decoded residency is
-built by the decode kernel (ops/cuda_decode.py) on CUDA and by its plain
-twin on the CPU.
+A DeviceSegment holds one segment's block tables, live mask and
+``blk_fid`` as torch tensors on one device, in one of two forms
+(decoded_policy picks):
+- decoded: every block decoded once into resident planes by the decode
+  kernel (ops/cuda_decode.decode_blocks) on CUDA, its plain twin on the
+  CPU; the packed words are dropped;
+- packed: the packed words stay, with their pad, and each batch decodes
+  its work items' blocks with the scoring decode kernel
+  (ops/cuda_decode.decode_score_blocks); the planes stay None.
 
 Left out, as TPU-only machinery: the +2048-word Mosaic pad (a pad of 2 zero
 words keeps every 2-word read in bounds), the pow2 doc-axis and block
@@ -36,11 +41,11 @@ class DeviceSegment:
     blk_base: torch.Tensor  # i32[NB]
     blk_count: torch.Tensor  # i32[NB]
     live: torch.Tensor  # bool[MDp] (padding docs are dead)
-    # --- decoded residency (add_decoded_planes) ---
+    blk_fid: torch.Tensor | None = None  # i32[NB] norms/cache row per block
+    # --- decoded residency (add_decoded_planes); None when packed ---
     docs_dec: torch.Tensor | None = None  # i32[NB,128] local doc ids, INVALID pad
     freqs_dec: torch.Tensor | None = None  # i16|i32[NB,128], 0 pad
     norm_dec: torch.Tensor | None = None  # u8[NB,128] norm bytes
-    blk_fid: torch.Tensor | None = None  # i32[NB] norms/cache row per block
 
     @property
     def max_doc_padded(self) -> int:
@@ -54,7 +59,8 @@ class DeviceSegment:
 def build_device_segment(
     packed: PackedSegment, device, live: np.ndarray | None = None
 ) -> DeviceSegment:
-    """Upload a packed segment's block tables and live mask to ``device``."""
+    """Upload a packed segment's words (with their pad), block tables,
+    per-block field ids and live mask to ``device``: the packed form."""
     mdp = round_up(max(packed.max_doc, 1), DOC_AXIS_MULTIPLE)
     live_arr = np.zeros(mdp, dtype=bool)
     live_arr[: packed.max_doc] = True if live is None else live[: packed.max_doc]
@@ -72,6 +78,7 @@ def build_device_segment(
         blk_base=put(packed.blk_base),
         blk_count=put(packed.blk_count),
         live=put(live_arr, torch.bool),
+        blk_fid=put(blk_fid_host(packed)),
     )
 
 
@@ -92,12 +99,10 @@ def blk_fid_host(packed: PackedSegment) -> np.ndarray:
     return out
 
 
-def add_decoded_planes(
-    dev: DeviceSegment, blk_fid: np.ndarray, freq_dtype=torch.int32
-) -> DeviceSegment:
+def add_decoded_planes(dev: DeviceSegment, freq_dtype=torch.int32) -> DeviceSegment:
     """Decode every postings block once into resident planes (one decode
     kernel launch on CUDA; the twin on the CPU), then drop the packed words:
-    every consumer on this path reads the planes."""
+    every consumer of a decoded segment reads the planes."""
     from rucene_tpu_torch.ops.cuda_decode import decode_blocks
 
     docs, freqs, norms = decode_blocks(
@@ -110,21 +115,25 @@ def add_decoded_planes(
         docs_dec=docs,
         freqs_dec=freqs,
         norm_dec=norms,
-        blk_fid=torch.from_numpy(np.ascontiguousarray(blk_fid, np.int32)).to(dev.device),
     )
 
 
 def decoded_policy(n_blocks: int, max_freq: int) -> tuple[bool, torch.dtype]:
-    """(fits the residency budget?, freq dtype).
+    """(decoded?, freq dtype) under the RUCENE_DECODED knob: ``0`` serves
+    the segment packed, ``1`` decoded, ``auto`` (the default) decoded when
+    it fits the residency budget.
 
-    Freqs are int16 when every freq fits (< 32768), else int32. A segment
-    is resident when its planes plus the per-stats cval table fit
-    RUCENE_DECODED_MAX_MB. Its default, 32 GB, is 40% of an 80 GB card:
-    the rest holds the batch transients, which at 256 rows over 8.8M docs
-    (dense f32 + i32 accumulators, masked scores and int64 top-k keys)
-    come to about 45 GB. The reference's RUCENE_DECODED=0 (packed serving)
-    has no counterpart yet: a segment over budget cannot be served."""
+    Freqs are int16 when every freq fits (< 32768), else int32. The budget
+    covers the planes plus the per-stats cval table, RUCENE_DECODED_MAX_MB.
+    Its default, 32 GB, is 40% of an 80 GB card: the rest holds the batch
+    transients, which at 256 rows over 8.8M docs (dense f32 + i32
+    accumulators, masked scores and int64 top-k keys) come to about 45 GB."""
+    env = os.environ.get("RUCENE_DECODED", "auto")
+    if env not in ("0", "1", "auto"):
+        raise ValueError(f"RUCENE_DECODED={env!r}: expected 0, 1 or auto")
     fdt = torch.int16 if max_freq < (1 << 15) else torch.int32
+    if env != "auto":
+        return env == "1", fdt
     fb = 2 if fdt == torch.int16 else 4
     per_block = 128 * (4 + fb + 1 + 4) + 4  # docs+freq+norm+cval lanes, fid
     limit = int(os.environ.get("RUCENE_DECODED_MAX_MB", 32768)) << 20

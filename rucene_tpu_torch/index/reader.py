@@ -2,9 +2,11 @@
 rucene_tpu/index/reader.py, slimmed to what the term/boolean slice reads).
 
 A snapshot builds its DeviceSegment lazily on first search, on the device
-its reader names, with the decoded residency. The small-segment shape
-floors of the reference are left out: they exist to reuse compiled XLA
-programs.
+its reader names, decoded or packed as codec/device.decoded_policy says
+(RUCENE_DECODED, read when the segment is built). The small-segment shape
+floors of the reference, and its rule that serves small segments packed,
+are left out: they exist to reuse compiled XLA programs and to spare the
+TPU host link.
 """
 
 from __future__ import annotations
@@ -17,7 +19,6 @@ import torch
 from rucene_tpu_torch.codec.device import (
     DeviceSegment,
     add_decoded_planes,
-    blk_fid_host,
     build_device_segment,
     decoded_policy,
 )
@@ -47,18 +48,15 @@ class SegmentSnapshot:
 
     @property
     def device(self) -> DeviceSegment:
-        """Device tensors with the decoded residency, built on first access."""
+        """Device tensors, decoded or packed, built on first access."""
         if self._device is None:
             packed = self.packed
             dev = build_device_segment(packed, self.torch_device, self.live)
             mf = int(packed.blk_max_freq.max()) if packed.num_blocks else 0
-            on, fdt = decoded_policy(packed.num_blocks, mf)
-            if not on:
-                raise NotImplementedError(
-                    "segment exceeds RUCENE_DECODED_MAX_MB; packed serving is "
-                    "not ported (ROADMAP.md §2 K2)"
-                )
-            self._device = add_decoded_planes(dev, blk_fid_host(packed), freq_dtype=fdt)
+            decoded, fdt = decoded_policy(packed.num_blocks, mf)
+            if decoded:
+                dev = add_decoded_planes(dev, freq_dtype=fdt)
+            self._device = dev
         return self._device
 
     @property

@@ -29,6 +29,7 @@ _P = ctypes.c_void_p
 _SIGNATURES = {
     # name: argtypes (pointers and the stream as c_void_p)
     "rtt_decode_blocks": [_P] * 9 + [ctypes.c_int64, ctypes.c_int, _P],
+    "rtt_decode_score_blocks": [_P] * 11 + [ctypes.c_int64, _P],
     "rtt_combine_lanes": [_P] * 7 + [ctypes.c_int] * 3 + [ctypes.c_int64, _P],
 }
 

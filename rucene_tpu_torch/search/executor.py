@@ -1,11 +1,15 @@
-"""The batched boolean/BM25 flat executor (counterpart of
-rucene_tpu/search/executor.py::execute_flat_impl, decoded residency only).
+"""The batched boolean/BM25 flat executors (counterpart of
+rucene_tpu/search/executor.py: execute_flat_impl, execute_flat_single and
+execute_flat_single_dec).
 
 A batch of queries runs against one segment as a FLAT WORK LIST, one item
 per (query, clause, 128-doc block):
 
-  1. gather each item's decoded block from the residency planes and score
-     every lane with BM25 (weight * tf / (tf + cval), the reference's f32
+  1. decode each item's block (decode_score_lanes) — a gather from the
+     residency planes on a decoded segment, the scoring decode kernel
+     (ops/cuda_decode.decode_score_blocks) on a packed one, once per
+     distinct block when the batch carries dedup tables — and score every
+     lane with BM25 (weight * tf / (tf + cval), the reference's f32
      operation order); FILTER / MUST_NOT clauses carry weight 0;
   2. combine same-(row, doc) contributions and clause-count encodings;
   3. apply boolean semantics (MUST/FILTER counts, min_should_match,
@@ -20,6 +24,11 @@ lanes sorted by (row, doc) and summed per group with ``index_add_``.
 Integer counts are exact in both; f32 sums follow an unspecified order, as
 in the reference (its scatter and associative scan differ the same way).
 
+Single-term rows (one positive-weight clause, no deletes) skip steps 2-3:
+each row's lanes are one posting list in doc order, so a per-row top-k
+over its own item extent (ops/topk.extent_top_k_lanes) is the answer and
+the term's doc_freq its total_hits.
+
 Clause kinds follow BooleanQuery: SHOULD=0 MUST=1 FILTER=2 MUST_NOT=3.
 """
 
@@ -32,8 +41,14 @@ import torch
 from rucene_tpu_torch.codec.device import DeviceSegment
 from rucene_tpu_torch.ops.combine_tables import MAX_ROWS
 from rucene_tpu_torch.ops.cuda_combine import combine_lanes
+from rucene_tpu_torch.ops.cuda_decode import decode_score_blocks
 from rucene_tpu_torch.ops.decode import INVALID_DOC
-from rucene_tpu_torch.ops.topk import DOC_PAD, score_doc_keys, topk_score_doc
+from rucene_tpu_torch.ops.topk import (
+    DOC_PAD,
+    extent_top_k_lanes,
+    score_doc_keys,
+    topk_score_doc,
+)
 from rucene_tpu_torch.util.metrics import METRICS
 
 # clause-count encodings packed into one int32 accumulator:
@@ -55,7 +70,13 @@ class FlatQueryBatch(NamedTuple):
     wi_valid: torch.Tensor  # bool[W]
     n_required: torch.Tensor  # i32[B]
     min_should: torch.Tensor  # i32[B]
-    cval_dec: torch.Tensor  # f32[NB,128] BM25 denominators per resident lane
+    cache: torch.Tensor  # f32[F,256] norm byte -> BM25 denominator
+    # decode-dedup tables (flat_tables.dedupe_work), None without dedup
+    wi_ublock: torch.Tensor | None = None  # i32[D] distinct blocks
+    wi_uvalid: torch.Tensor | None = None  # bool[D]
+    wi_ufid: torch.Tensor | None = None  # i32[D] cache row per distinct block
+    wi_inv: torch.Tensor | None = None  # i32[W] item -> distinct block
+    cval_dec: torch.Tensor | None = None  # f32[NB,128] resident denominators (decoded segments)
 
 
 class CombineBatch(NamedTuple):
@@ -79,17 +100,41 @@ def dense_strategy(b: int, md: int, n_items: int, strategy: str = "auto") -> boo
 
 
 def decode_score_lanes(dev: DeviceSegment, q: FlatQueryBatch):
-    """Gather each item's resident block and score its lanes. Returns
-    (target i32[W,128] doc id or md+1 for invalid lanes, sc f32[W,128],
-    valid bool[W,128])."""
+    """Decode each item's block and score its lanes. Returns (target
+    i32[W,128] doc id or md+1 for invalid lanes, sc f32[W,128], valid
+    bool[W,128]).
+
+    With dedup tables the decode runs once per distinct block and its lanes
+    expand to items through wi_inv: an item's lanes are valid where its
+    block's are and the item is. Scores are bit-identical either way. The
+    reference's XLA unpack branch for packed segments is not ported: on the
+    CPU the scoring decode's wrapper runs its plain twin."""
     md = dev.max_doc_padded
-    nbr = dev.docs_dec.shape[0]
-    sb = q.wi_block.long().clamp(0, nbr - 1)
-    cnt = torch.where(q.wi_valid, dev.blk_count[sb], 0)
-    valid = torch.arange(128, device=sb.device) < cnt[:, None]
-    docs = torch.where(valid, dev.docs_dec[sb], INVALID_DOC)
-    tf = torch.where(valid, dev.freqs_dec[sb].to(torch.int32), 0).to(torch.float32)
-    cval = q.cval_dec[sb]
+    dedup = q.wi_ublock is not None
+    blk = (q.wi_ublock if dedup else q.wi_block).long()
+    bvalid = q.wi_uvalid if dedup else q.wi_valid
+    bfid = q.wi_ufid if dedup else q.wi_fid
+    lane = torch.arange(128, device=blk.device)
+    if dev.docs_dec is not None:
+        sb = blk.clamp(0, dev.docs_dec.shape[0] - 1)
+        cnt = torch.where(bvalid, dev.blk_count[sb], 0)
+        valid = lane < cnt[:, None]
+        docs = torch.where(valid, dev.docs_dec[sb], INVALID_DOC)
+        freqs = torch.where(valid, dev.freqs_dec[sb].to(torch.int32), 0)
+        cval = q.cval_dec[sb]
+    else:
+        cnt = torch.where(bvalid, dev.blk_count[blk], 0)
+        docs, freqs, cval = decode_score_blocks(
+            dev.data, dev.blk_off[blk], dev.blk_doc_bits[blk], dev.blk_freq_bits[blk],
+            dev.blk_base[blk], cnt, bfid, q.cache,
+        )
+        valid = lane < cnt[:, None]
+    if dedup:
+        inv = q.wi_inv.long()
+        docs, freqs, cval = docs[inv], freqs[inv], cval[inv]
+        valid = valid[inv] & q.wi_valid[:, None]
+        freqs = torch.where(valid, freqs, 0)
+    tf = freqs.to(torch.float32)
     sc = q.wi_weight[:, None] * tf / (tf + cval)
     sc = torch.where(valid, sc, 0.0)
     target = torch.where(valid, docs, md + 1)
@@ -221,3 +266,72 @@ def execute_flat_impl(
         top_docs[: b * k].view(b, k),
         per_row[:b].to(torch.int32),
     )
+
+
+def _single_top_k(sc, docs, valid, row_item_start, row_item_count, max_items, k):
+    # a real posting always scores > 0 here (one positive-weight clause,
+    # tf >= 1); invalid lanes score 0
+    matched = valid & (sc > 0.0)
+    score_l = torch.where(matched, sc, -torch.inf)
+    docm = torch.where(matched, docs, DOC_PAD)
+    return extent_top_k_lanes(score_l, docm, row_item_start, row_item_count, max_items, k)
+
+
+def execute_flat_single(
+    dev: DeviceSegment,
+    q: FlatQueryBatch,
+    row_item_start: torch.Tensor,  # i32[B] first work item of each row
+    row_item_count: torch.Tensor,  # i32[B] work items of each row
+    row_hits: torch.Tensor,  # i32[B] live postings: the row's total_hits
+    k: int,
+    max_items: int,  # >= every row_item_count
+):
+    """Single-scoring-clause rows (plain term queries), no deleted docs:
+    each row's lanes are one posting list in doc order, so no cross-clause
+    combine and no dense [B, max_doc] accumulator is needed; the top-k
+    runs over the row's own item extent. Lanes come from
+    decode_score_lanes, so on a packed segment from the scoring decode
+    kernel. Memory and time do not depend on max_doc.
+
+    Caller guarantees: one scoring clause per row with positive weight, no
+    MUST_NOT / FILTER, dev.live all-true over real docs, and every row's
+    work items contiguous in the flat list. Returns (scores f32[B,k], docs
+    i32[B,k], total_hits i32[B])."""
+    target, sc, valid = decode_score_lanes(dev, q)
+    top_scores, top_docs = _single_top_k(
+        sc, target, valid, row_item_start, row_item_count, max_items, k
+    )
+    return top_scores, top_docs, row_hits.to(torch.int32)
+
+
+def execute_flat_single_dec(
+    dev: DeviceSegment,
+    cval_dec: torch.Tensor,  # f32[NB,128] resident BM25 denominators
+    block_start: torch.Tensor,  # i32[B] the row's first block
+    block_count: torch.Tensor,  # i32[B] the row's blocks
+    weight: torch.Tensor,  # f32[B] the row's clause weight
+    row_hits: torch.Tensor,  # i32[B] live postings: the row's total_hits
+    n_items: int,  # sum of block_count
+    k: int,
+    max_items: int,  # >= every block_count
+):
+    """Decoded-residency single-term rows with the work list expanded on
+    the device from per-row block ranges (repeat_interleave over the row
+    ids, cumsum for the extents): the host sends four [B] tables instead of
+    a flat work list. The reference's _fill_extents (a scan in place of a
+    per-item gather, which serialises on the TPU) and the i32 bitcast of
+    the weights it needs are not ported: items gather their row's values.
+    Same score math and extent top-k as execute_flat_single; the same
+    caller guarantees, plus decoded residency."""
+    dvc = block_count.device
+    bc = block_count.long()
+    starts = torch.cumsum(bc, 0) - bc
+    row = torch.repeat_interleave(torch.arange(bc.shape[0], device=dvc), bc, output_size=n_items)
+    blk = block_start.long()[row] + torch.arange(n_items, device=dvc) - starts[row]
+    sb = blk.clamp(0, dev.docs_dec.shape[0] - 1)
+    valid = torch.arange(128, device=dvc) < dev.blk_count[sb][:, None]
+    docs = torch.where(valid, dev.docs_dec[sb], INVALID_DOC)
+    tf = torch.where(valid, dev.freqs_dec[sb].to(torch.int32), 0).to(torch.float32)
+    sc = weight[row][:, None] * tf / (tf + cval_dec[sb])
+    top_scores, top_docs = _single_top_k(sc, docs, valid, starts, bc, max_items, k)
+    return top_scores, top_docs, row_hits.to(torch.int32)

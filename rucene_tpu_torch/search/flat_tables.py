@@ -2,13 +2,17 @@
 rucene_tpu/search/flat_tables.py).
 
 Host numpy assembly of the per-(query, clause, 128-doc block) work list and
-the dense-combine entry tables, plus the one place executor inputs move to
-the device (make_flat_batch). Left out of the reference: the W floor of
-1024 and the pow2 pads, which keep XLA shapes reusable, and the TPU gates
+the dense-combine entry tables and the decode-dedup tables, plus the one
+place executor inputs move to the device (make_flat_batch). Left out of
+the reference: the W floor of 1024 and the pow2 pads (of the work list
+and of dedup's distinct-block count, whose floor of 8 is the Pallas
+kernel's item group), which keep XLA shapes reusable, and the TPU gates
 on the combine kernel. On CUDA every dense-branch call goes through it.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -79,8 +83,8 @@ def build_clause_tables(rqs, sim, doc_freqs, stats, b: int, t: int, plans=None):
 
 
 def leaf_rows_for(leaf, rq, plan=None):
-    """One row's per-segment term resolution (block ranges, norms rows),
-    cached on the plan per leaf identity."""
+    """One row's per-segment term resolution (block ranges, norms rows,
+    doc_freqs), cached on the plan per leaf identity."""
     lid = id(leaf)
     if plan is not None:
         row = plan.leaf_rows.get(lid)
@@ -90,6 +94,7 @@ def leaf_rows_for(leaf, rq, plan=None):
     bs = np.zeros(len(slots), np.int32)
     bc = np.zeros(len(slots), np.int32)
     fid = np.zeros(len(slots), np.int32)
+    df = np.zeros(len(slots), np.int32)
     for j, (_occ, c) in enumerate(slots):
         rec = leaf.term_record(c.term.field, c.term.text)
         if rec is None:
@@ -97,7 +102,8 @@ def leaf_rows_for(leaf, rq, plan=None):
         bs[j] = rec.block_start
         bc[j] = rec.block_count
         fid[j] = leaf.packed.fields[c.term.field].field_id
-    row = dict(bs=bs, bc=bc, fid=fid)
+        df[j] = rec.doc_freq
+    row = dict(bs=bs, bc=bc, fid=fid, df=df)
     if plan is not None:
         plan.leaf_rows[lid] = row
     return row
@@ -239,13 +245,39 @@ def prune_conjunctions(work, n_required: np.ndarray, blk_ranges):
     return out + (m, tslot), dropped
 
 
+def dedupe_work(wi_block, wi_valid, wi_fid):
+    """Distinct-block decode tables: Zipf query mixes repeat hot terms
+    across rows, so the same blocks appear in many work items; decode each
+    once ([D] axis) and let the items gather its lanes. Returns (wi_ublock
+    i32[D], wi_uvalid bool[D], wi_ufid i32[D], wi_inv i32[W]), or None when
+    no block repeats. D is the exact distinct count. A block belongs to one
+    field, so the fid of its first item is every item's."""
+    n = int(wi_valid.sum())
+    if n == 0:
+        return None
+    vb = wi_block[:n]
+    ub, first_idx = np.unique(vb, return_index=True)
+    if len(ub) == n:
+        return None
+    inv = np.zeros(len(wi_block), np.int32)
+    inv[:n] = np.searchsorted(ub, vb)
+    METRICS.incr("search.decode_dedup_items", n - len(ub))
+    return (
+        ub.astype(np.int32), np.ones(len(ub), bool),
+        wi_fid[:n][first_idx].astype(np.int32), inv,
+    )
+
+
 _CVAL_CACHE: dict = {}  # (id(norm_dec), cache bytes) -> (norm_dec ref, table)
 
 
-def cval_table_for(dev, cache: np.ndarray) -> torch.Tensor:
+def cval_table_for(dev, cache: np.ndarray) -> torch.Tensor | None:
     """f32[NB,128] BM25 denominators cache[fid, norm_byte] per resident
-    lane, built once per (device segment, stats). Entries hold a strong ref
-    to the keyed tensor so a recycled id() never serves a stale table."""
+    lane, built once per (device segment, stats); None for a packed
+    segment. Entries hold a strong ref to the keyed tensor so a recycled
+    id() never serves a stale table."""
+    if dev.norm_dec is None:
+        return None
     key = (id(dev.norm_dec), cache.tobytes())
     ent = _CVAL_CACHE.get(key)
     if ent is not None and ent[0] is dev.norm_dec:
@@ -264,17 +296,26 @@ def _to(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def make_flat_batch(work, n_required, min_should, cache, dev) -> FlatQueryBatch:
+def make_flat_batch(work, n_required, min_should, cache, dev, dedupe: bool = False) -> FlatQueryBatch:
     """Device FlatQueryBatch from a host work tuple (build_flat_work /
-    prune_conjunctions output), on ``dev``'s device with its cval table."""
+    prune_conjunctions output), on ``dev``'s device with its cval table
+    (decoded segments). dedupe=True attaches the decode-dedup tables on a
+    packed segment only: on a decoded one a decode is one row gather and
+    the host's unique / searchsorted costs more than it saves
+    (RUCENE_DEDUP=1 forces them there too)."""
     wi_block, wi_row, wi_weight, wi_fid, wi_enc, wi_valid = work[:6]
+    if dedupe and dev.docs_dec is not None:
+        dedupe = os.environ.get("RUCENE_DEDUP") == "1"
+    dd = dedupe_work(wi_block, wi_valid, wi_fid) if dedupe else None
     d = dev.device
+    ub, uvalid, ufid, inv = (None,) * 4 if dd is None else (_to(a, d) for a in dd)
     return FlatQueryBatch(
         wi_block=_to(wi_block, d), wi_row=_to(wi_row, d),
         wi_weight=_to(wi_weight, d), wi_fid=_to(wi_fid, d),
         wi_enc=_to(wi_enc, d), wi_valid=_to(wi_valid, d),
         n_required=_to(n_required, d), min_should=_to(min_should, d),
-        cval_dec=cval_table_for(dev, cache),
+        cache=_to(cache, d), wi_ublock=ub, wi_uvalid=uvalid, wi_ufid=ufid,
+        wi_inv=inv, cval_dec=cval_table_for(dev, cache),
     )
 
 

@@ -1,15 +1,24 @@
 """IndexSearcher: batched entry point over a point-in-time IndexReader
-(counterpart of rucene_tpu/search/searcher.py, generic flat path only).
+(counterpart of rucene_tpu/search/searcher.py: the generic flat route and
+the single-term route).
 
-A batch of rows runs per leaf through the generic flat executor
-(search/executor.py) on the searcher's torch device; leaf hits merge by
-(score desc, global doc asc). Collection statistics are computed once per
+A batch of rows runs per leaf on the searcher's torch device, over
+decoded or packed segments alike; leaf hits merge by (score desc, global
+doc asc). Two routes (counters ``route.single`` / ``route.flat``, rows):
+- single: a batch of plain term rows (one positive-weight SHOULD clause)
+  over leaves without deletes goes to execute_flat_single_dec on a
+  decoded leaf, execute_flat_single on a packed one; total_hits is the
+  term's doc_freq, so a leaf with deletes keeps such rows generic;
+- flat: everything else, through the generic flat executor.
+On a corpus of SPLIT_MIN_DOCS or more, a mixed batch splits into single,
+pure-disjunction and other rows (the reference's row classes 0-2), each
+its own executor call. Collection statistics are computed once per
 searcher. Rows this slice does not serve raise NotImplementedError naming
 the ROADMAP.md item that ports them: there is no host fallback.
 
-Left out of the reference: the specialised single-term, pair and tf-plane
-routes (each is held against the generic path there), WAND pruning,
-timeouts, the combined multi-segment view, phrase/range/synonym paths.
+Left out of the reference: the pair and tf-plane routes (row classes 3
+and 4), WAND pruning, timeouts, the combined multi-segment view,
+phrase/range/synonym paths.
 """
 
 from __future__ import annotations
@@ -22,7 +31,12 @@ import numpy as np
 import torch
 
 from rucene_tpu_torch.index.reader import IndexReader
-from rucene_tpu_torch.search.executor import dense_strategy, execute_flat_impl
+from rucene_tpu_torch.search.executor import (
+    dense_strategy,
+    execute_flat_impl,
+    execute_flat_single,
+    execute_flat_single_dec,
+)
 from rucene_tpu_torch.search.flat_tables import (
     QueryPlan,
     build_clause_tables,
@@ -30,12 +44,16 @@ from rucene_tpu_torch.search.flat_tables import (
     build_flat_work,
     build_leaf_cache,
     build_leaf_tables,
+    cval_table_for,
+    leaf_rows_for,
     make_flat_batch,
     prune_conjunctions,
 )
 from rucene_tpu_torch.search.query import Occur, Query, RewrittenQuery, _NeedsHostEval
 from rucene_tpu_torch.search.similarity import BM25Similarity, CollectionStats
 from rucene_tpu_torch.util.metrics import METRICS
+
+SPLIT_MIN_DOCS = 1 << 19  # corpus size from which mixed batches split by row class
 
 
 class ScoreDoc(NamedTuple):
@@ -235,18 +253,23 @@ class IndexSearcher:
             rqs, sim, doc_freqs, stats, b, t, plans=plans
         )
         pure_rows = [self._pure_row(rq, weight[i]) for i, rq in enumerate(rqs)]
+        # total_hits of a single-term row is its doc_freq: exact only
+        # when no leaf has deletes
+        no_deletes = all(lf.live is None for lf in self.reader.leaves)
+        single_rows = [
+            p and no_deletes and len(rq.clauses) == 1 for p, rq in zip(pure_rows, rqs)
+        ]
 
-        # large corpora: split by row class so pure disjunctions skip the
-        # clause counts (the reference's row-class split, generic classes)
+        # large corpora: split by row class (the reference's classes 0-2)
+        # so single-term rows skip the combine and pure disjunctions skip
+        # the clause counts
+        cls = [0 if s else 1 if p else 2 for s, p in zip(single_rows, pure_rows)]
         if (
             b > 1
-            and 0 < sum(pure_rows) < b
-            and sum(lf.max_doc for lf in self.reader.leaves) >= (1 << 19)
+            and len(set(cls)) > 1
+            and sum(lf.max_doc for lf in self.reader.leaves) >= SPLIT_MIN_DOCS
         ):
-            groups = [
-                [i for i, p in enumerate(pure_rows) if p],
-                [i for i, p in enumerate(pure_rows) if not p],
-            ]
+            groups = [[i for i, c in enumerate(cls) if c == g] for g in sorted(set(cls))]
             starters = [
                 (idxs, self._search_device(
                     [rqs[i] for i in idxs], k, [plans[i] for i in idxs],
@@ -265,17 +288,36 @@ class IndexSearcher:
             return finish_split
 
         pure = all(pure_rows)
+        single = all(single_rows)
+        METRICS.incr("route.single" if single else "route.flat", b)
         pending = []
         for leaf in self.reader.leaves:
             cache = build_leaf_cache(leaf, sim, stats)
             block_start, block_count, field_id = build_leaf_tables(
                 leaf, rqs, b, t, plans=plans
             )
+            if single:
+                lane_cnt = np.array(
+                    [leaf_rows_for(leaf, rq, plans[i])["df"][0] for i, rq in enumerate(rqs)],
+                    np.int32,
+                )
+                if leaf.device.docs_dec is not None:
+                    res = self._run_single_dec(
+                        leaf, block_start[:, 0], block_count[:, 0], weight[:, 0],
+                        lane_cnt, cache, k,
+                    )
+                    pending.append((leaf.doc_base, res))
+                    continue
             work = build_flat_work(block_start, block_count, weight, field_id, occur)
             work, _ = prune_conjunctions(
                 work, n_required, (leaf.packed.blk_first_doc, leaf.packed.blk_last_doc),
             )
-            res = self._run_work(leaf, work[:6], cache, n_required, min_should, k, pure)
+            if single:
+                res = self._run_single_view(
+                    leaf.device, work, lane_cnt, cache, n_required, min_should, k
+                )
+            else:
+                res = self._run_work(leaf, work[:6], cache, n_required, min_should, k, pure)
             pending.append((leaf.doc_base, res))
 
         def finish() -> list[TopDocs]:
@@ -287,6 +329,34 @@ class IndexSearcher:
             return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
 
         return finish
+
+    def _run_single_view(self, dev, work, lane_cnt, cache, n_required, min_should, k):
+        """Single-term rows over a leaf's flat work list (a packed leaf's
+        route, through the scoring decode): per-row top-k over the row's
+        own item extent (executor.execute_flat_single)."""
+        wi_row, n = work[1], work[6]
+        METRICS.incr("search.flat_lanes", int(n) * 128)
+        rows = np.arange(len(lane_cnt))
+        starts = np.searchsorted(wi_row[:n], rows)
+        counts = np.searchsorted(wi_row[:n], rows, side="right") - starts
+        q = make_flat_batch(work, n_required, min_should, cache, dev, dedupe=True)
+        return execute_flat_single(
+            dev, q, _put(starts, dev.device), _put(counts, dev.device),
+            _put(lane_cnt, dev.device), k, max(int(counts.max()), 1),
+        )
+
+    def _run_single_dec(self, leaf, bs, bc, w_row, lane_cnt, cache, k):
+        """Single-term rows on a decoded leaf: the work list is expanded on
+        the device from per-row block ranges
+        (executor.execute_flat_single_dec)."""
+        dev = leaf.device
+        n = int(bc.sum())
+        METRICS.incr("search.flat_lanes", n * 128)
+        return execute_flat_single_dec(
+            dev, cval_table_for(dev, cache), _put(bs, dev.device), _put(bc, dev.device),
+            _put(w_row, dev.device, np.float32), _put(lane_cnt, dev.device), n, k,
+            max(int(bc.max()), 1),
+        )
 
     def _run_work(self, leaf, arrays, cache, n_required, min_should, k, pure):
         """One executor call for a leaf's work list."""
@@ -301,5 +371,9 @@ class IndexSearcher:
                 arrays, len(n_required), leaf.packed.blk_first_doc,
                 leaf.packed.blk_last_doc, dev.max_doc_padded, dev.device,
             )
-        q = make_flat_batch(arrays, n_required, min_should, cache, dev)
+        q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
         return execute_flat_impl(dev, q, k, pure_disjunction=pure, combine=combine)
+
+
+def _put(a, device, dtype=np.int32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)

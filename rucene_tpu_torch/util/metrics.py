@@ -2,8 +2,10 @@
 without its profiler hooks).
 
 Counters in use:
-- ``route.device``: query rows served by the generic flat executor;
+- ``route.device``: query rows served on the device;
+- ``route.single`` / ``route.flat``: rows per route (search/searcher.py);
 - ``search.queries``, ``search.flat_lanes``, ``search.conj_pruned_blocks``;
+- ``search.decode_dedup_items``: work items whose block decode was shared;
 - ``search.strategy.dense`` / ``search.strategy.candidate``: executor calls
   per branch;
 - ``kernel.<name>``: launches of a CUDA kernel, counted by its wrapper

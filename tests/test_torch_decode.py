@@ -14,11 +14,7 @@ from rucene_tpu.codec.postings import pack_segment
 from rucene_tpu.index.memory import SegmentBuffer
 from rucene_tpu.ops.pallas_decode import G, decode_work_items_pallas
 from rucene_tpu.util.packing import EF_TAG
-from rucene_tpu_torch.codec.device import (
-    add_decoded_planes,
-    blk_fid_host,
-    build_device_segment,
-)
+from rucene_tpu_torch.codec.device import add_decoded_planes, build_device_segment
 from rucene_tpu_torch.codec.postings import packed_from_reference
 from rucene_tpu_torch.ops.cuda_decode import decode_blocks, decode_blocks_plain
 from tests.conftest import make_docs, random_corpus
@@ -123,7 +119,7 @@ def test_decoded_planes_match_reference(packed, monkeypatch):
     ref = SegmentSnapshot("s", packed).device
     nb = packed.num_blocks
     mine = build_device_segment(packed_from_reference(packed), "cpu")
-    mine = add_decoded_planes(mine, blk_fid_host(packed), freq_dtype=torch.int16)
+    mine = add_decoded_planes(mine, freq_dtype=torch.int16)
     np.testing.assert_array_equal(mine.docs_dec.numpy(), np.asarray(ref.docs_dec)[:nb])
     np.testing.assert_array_equal(
         mine.freqs_dec.numpy().astype(np.int64), np.asarray(ref.freqs_dec)[:nb].astype(np.int64)

@@ -16,9 +16,17 @@ import torch
 import rucene_tpu_torch as T
 from rucene_tpu_torch.codec.device import build_device_segment
 from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
+from rucene_tpu_torch.ops import cuda_decode
 from rucene_tpu_torch.ops.cuda_combine import combine_lanes, combine_lanes_plain
-from rucene_tpu_torch.ops.cuda_decode import decode_blocks, decode_blocks_plain
+from rucene_tpu_torch.ops.cuda_decode import (
+    decode_blocks,
+    decode_blocks_plain,
+    decode_score_blocks,
+    decode_score_blocks_plain,
+)
+from rucene_tpu_torch.search import searcher as searcher_mod
 from rucene_tpu_torch.search.flat_tables import build_combine_batch
+from rucene_tpu_torch.util.metrics import METRICS
 from rucene_tpu_torch.util.packing import EF_TAG
 from torch_hitcheck import assert_batches_strict
 from torch_kernel_data import combine_arrays, port_segment, synthetic_items
@@ -43,6 +51,29 @@ def test_decode_kernel_matches_twin(card, kind, freq_dtype):
               seg.blk_base, seg.blk_count)
     want = decode_blocks_plain(*tables, freq_dtype=freq_dtype)
     got = decode_blocks(*(t.to(card) for t in tables), freq_dtype=freq_dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ef_heavy", "plain"])
+def test_decode_score_kernel_matches_twin(card, kind):
+    """K2 on every block (repeated, some items inert with count 0) with a
+    3-row cache and varying fid: docs, freqs and cval bit-equal."""
+    packed = port_segment(kind)
+    seg = build_device_segment(packed, "cpu")
+    nb = packed.num_blocks
+    rng = np.random.default_rng(5)
+    idx = torch.from_numpy(rng.integers(0, nb, 3 * nb))
+    count = seg.blk_count[idx].clone()
+    count[::7] = 0  # inert items
+    fid = torch.from_numpy((np.arange(len(idx)) % 3).astype(np.int32))
+    cache = torch.from_numpy(np.abs(rng.standard_normal((3, 256))).astype(np.float32) + 0.25)
+    args = (seg.data, seg.blk_off[idx], seg.blk_doc_bits[idx], seg.blk_freq_bits[idx],
+            seg.blk_base[idx], count, fid, cache)
+    want = decode_score_blocks_plain(*args)
+    got = decode_score_blocks(*(a.to(card) for a in args))
     for g, w in zip(got, want):
         assert g.dtype == w.dtype
         assert torch.equal(g.cpu(), w)
@@ -108,3 +139,48 @@ def test_slice_on_card_matches_cpu(card, strategy, monkeypatch):
     got = searcher(card).search_batch(rows, k=1000)
     assert max(td.total_hits for td in want) < 1000
     assert_batches_strict(got, want)
+
+
+def _refuse(*_a, **_k):
+    raise AssertionError("a plain decode twin ran for a CUDA tensor")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deletes", [False, True])
+@pytest.mark.parametrize("decoded", ["0", "1"])
+def test_routes_on_card_match_cpu(card, decoded, deletes, monkeypatch):
+    """Packed (RUCENE_DECODED=0) and decoded serving of a mixed batch, split
+    by row class, and of a single-term batch, over two segments (one with
+    deletes when asked): the card's TopDocs equal the CPU's bit for bit,
+    the single route runs exactly when no leaf has deletes, packed leaves
+    go through the scoring decode kernel, and no plain twin runs on the
+    card."""
+    monkeypatch.setenv("RUCENE_DECODED", decoded)
+    monkeypatch.setattr(searcher_mod, "SPLIT_MIN_DOCS", 0)
+    segs = [port_segment("ef_heavy"), port_segment("plain")]
+    live = np.random.default_rng(3).random(segs[1].max_doc) > 0.3 if deletes else None
+
+    def searcher(device):
+        return T.IndexSearcher(IndexReader([
+            SegmentSnapshot("a", segs[0]), SegmentSnapshot("b", segs[1], live=live),
+        ]), device=device)
+
+    vocab = [f"v{i}" for i in range(25)] + ["efhot", "u17", "u4242", "absent"]
+    rows = _slice_rows(vocab)
+    singles = [T.TermQuery(T.Term("body", t)) for t in vocab]
+    want = [searcher("cpu").search_batch(x, k=1000) for x in (rows, singles)]
+    monkeypatch.setattr(cuda_decode, "decode_blocks_plain", _refuse)
+    monkeypatch.setattr(cuda_decode, "decode_score_blocks_plain", _refuse)
+    METRICS.reset()
+    s = searcher(card)
+    got = [s.search_batch(x, k=1000) for x in (rows, singles)]
+    counters = METRICS.snapshot()["counters"]
+    assert_batches_strict(got[0], want[0])
+    assert got[1] == want[1]  # one clause: the same f32 operations
+    n_single = len(singles) + sum(isinstance(r, T.TermQuery) for r in rows)
+    n_rows = len(rows) + len(singles)
+    assert counters.get("route.single", 0) == (0 if deletes else n_single)
+    assert counters.get("route.single", 0) + counters.get("route.flat", 0) == n_rows
+    k2 = counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
+    assert (k2 > 0) == (decoded == "0")
+    assert all((lf.device.docs_dec is None) == (decoded == "0") for lf in s.reader.leaves)

@@ -11,6 +11,12 @@ more clause scores sum in each executor's own order). Lists are compared
 complete (k above every row's hit count); a truncated list must then be,
 bit for bit, the head of the port's complete one, so ties at the k-th
 boundary are broken by doc id.
+
+Packed serving (RUCENE_DECODED=0: the scoring decode's twin on the CPU)
+must match the reference the same way and equal the port's decoded run
+bit for bit. With the row-class split forced on (SPLIT_MIN_DOCS=0),
+single-term rows take the single route exactly when no leaf has deletes,
+as the route counters show.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ from rucene_tpu.index.reader import IndexReader as RefReader
 from rucene_tpu.index.reader import SegmentSnapshot as RefSnapshot
 from rucene_tpu_torch.codec.postings import packed_from_reference
 from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
+from rucene_tpu_torch.search import searcher as searcher_mod
 from rucene_tpu_torch.util.metrics import METRICS
 from tests.conftest import WORDS, make_docs, random_corpus
 from tests.torch_hitcheck import assert_batches_strict
@@ -68,6 +75,10 @@ def _row_specs(seed=9, n=48):
     return out
 
 
+def _single_specs():
+    return [("T", [w], 0) for w in WORDS + ["absent"]]
+
+
 def _query(pkg, spec):
     occ, terms, msm = spec
     if occ == "T":
@@ -86,6 +97,9 @@ def index(request):
     )
     specs = _row_specs()
     want = ref.search_batch([_query(R, s) for s in specs], k=K_ALL, prune=False)
+    want_single = ref.search_batch(
+        [_query(R, s) for s in _single_specs()], k=K_ALL, prune=False
+    )
 
     def port():
         return T.IndexSearcher(
@@ -96,12 +110,12 @@ def index(request):
             device="cpu",
         )
 
-    return port, specs, want
+    return port, specs, want, want_single
 
 
 @pytest.mark.parametrize("strategy", ["auto", "dense", "candidate"])
 def test_slice_matches_reference(index, strategy, monkeypatch):
-    port, specs, want = index
+    port, specs, want, _ = index
     monkeypatch.setenv("RUCENE_STRATEGY", strategy)
     METRICS.reset()
     searcher = port()
@@ -120,7 +134,7 @@ def test_slice_matches_reference(index, strategy, monkeypatch):
 
 
 def test_search_and_async_agree(index):
-    port, specs, want = index
+    port, specs, want, _ = index
     s = port()
     collect = s.search_batch_async([_query(T, x) for x in specs[:8]], k=K_ALL)
     assert_batches_strict(collect(), want[:8])
@@ -150,7 +164,63 @@ def _unported():
 
 @pytest.mark.parametrize("name", sorted(_unported()))
 def test_unported_rows_raise(index, name):
-    port, _specs, _want = index
+    port, _specs, _want, _ = index
     q = _unported()[name]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         port().search_batch([T.TermQuery(T.Term("body", "fox")), q], k=5)
+
+
+def test_packed_matches_reference_and_decoded(index, monkeypatch):
+    """RUCENE_DECODED=0: no decoded planes, hits match the reference, and
+    equal the port's decoded run bit for bit (complete and truncated)."""
+    port, specs, want, _ = index
+    rows = [_query(T, s) for s in specs]
+    monkeypatch.setenv("RUCENE_DECODED", "0")
+    packed = port()
+    got = packed.search_batch(rows, k=K_ALL)
+    assert all(lf.device.docs_dec is None for lf in packed.reader.leaves)
+    assert_batches_strict(got, want)
+    monkeypatch.setenv("RUCENE_DECODED", "1")
+    decoded = port()
+    assert decoded.search_batch(rows, k=K_ALL) == got
+    assert all(lf.device.docs_dec is not None for lf in decoded.reader.leaves)
+    assert decoded.search_batch(rows, k=10) == packed.search_batch(rows, k=10)
+
+
+def test_forced_dedup_on_decoded_is_bit_identical(index, monkeypatch):
+    """RUCENE_DEDUP=1 attaches the decode-dedup tables on decoded segments
+    too (off by default there): the hits stay bit-identical."""
+    port, specs, want, _ = index
+    rows = [_query(T, s) for s in specs]
+    monkeypatch.setenv("RUCENE_DECODED", "1")
+    METRICS.reset()
+    plain = port().search_batch(rows, k=K_ALL)
+    assert METRICS.snapshot()["counters"].get("search.decode_dedup_items", 0) == 0
+    monkeypatch.setenv("RUCENE_DEDUP", "1")
+    deduped = port().search_batch(rows, k=K_ALL)
+    assert METRICS.snapshot()["counters"].get("search.decode_dedup_items", 0) > 0
+    assert deduped == plain
+    assert_batches_strict(deduped, want)
+
+
+@pytest.mark.parametrize("decoded", ["0", "1"])
+def test_routes_by_row_class(index, decoded, monkeypatch):
+    """With the split forced on, a mixed batch's term rows take the single
+    route, and a single-term batch is one single-route call, unless a leaf
+    has deletes: then every row stays generic. Hits match the reference."""
+    port, specs, want, want_single = index
+    monkeypatch.setenv("RUCENE_DECODED", decoded)
+    monkeypatch.setattr(searcher_mod, "SPLIT_MIN_DOCS", 0)
+    searcher = port()
+    deletes = any(lf.live is not None for lf in searcher.reader.leaves)
+    singles = [_query(T, s) for s in _single_specs()]
+    n_term = sum(occ == "T" for occ, _, _ in specs)
+    METRICS.reset()
+    got = searcher.search_batch([_query(T, s) for s in specs], k=K_ALL)
+    got_single = searcher.search_batch(singles, k=K_ALL)
+    counters = METRICS.snapshot()["counters"]
+    assert_batches_strict(got, want)
+    assert_batches_strict(got_single, want_single)
+    n_single = 0 if deletes else n_term + len(singles)
+    assert counters.get("route.single", 0) == n_single
+    assert counters.get("route.flat", 0) == len(specs) + len(singles) - n_single
