@@ -20,7 +20,8 @@ Builds the CUDA kernels and the native library from this checkout, then:
      single-term rows took the single route), then replays one call of
      each kernel from that path (the residency decode; the head-band
      batch's combine) against its plain PyTorch version on the card, and
-     times both;
+     times both, and the combine's library yardstick (zeroed planes plus
+     index_add_ of the items' valid lanes, which the port never calls);
   8. packed serving: a second reader over the same segment, built with
      RUCENE_DECODED=0 (no decoded planes), serves the mix the same way
      with the plain decode twins disabled, so every block decode is the
@@ -30,8 +31,12 @@ Builds the CUDA kernels and the native library from this checkout, then:
   9. replays the scoring decode of the first packed batch's single-term
      rows (their distinct blocks, fids and cache) against its plain
      version on the card: docs, freqs and cval bit-equal; times both.
-Any failure raises. The last two lines are the kernels' JSON record and the
-device line; the card's name and power limit come on the line before them.
+Each kernel's bound is the bytes it must move at the replayed shape (its
+wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
+the mean of back-to-back runs over rotating copies of their inputs (cold
+L2), enqueued behind a sleep so that host launch time is not counted
+(cuda_ms). Any failure raises. The last three lines are the kernels'
+JSON record, the card's name and power limit, and the device line.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ N_QUERIES = 512
 K1_SOURCE = "rucene_tpu_torch/csrc/decode.cu"
 K2_SOURCE = K1_SOURCE
 K3_SOURCE = "rucene_tpu_torch/csrc/combine.cu"
+HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 
 
 def log(msg: str) -> None:
@@ -144,17 +150,34 @@ def pack_corpus(texts):
 # --- measurement helpers ------------------------------------------------------
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean device time of fn() over reps runs, after one warm run."""
-    fn()
+def cuda_ms(fn, args, reps: int = 20, copies: int = 4) -> float:
+    """Mean device time of fn(*args) over reps back-to-back runs, after a
+    warm run. The runs rotate over ``copies`` clones of every tensor
+    argument and each run's result is kept to the end, so a run finds
+    neither its inputs nor its outputs in the 50 MB L2 unless the caller's
+    working set is that small. A sleep kernel holds the card until every
+    run is enqueued, so host launch time is not counted (unless fn
+    synchronises); the gap between two launches on the stream is."""
+    sets = [args] + [
+        tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        for _ in range(copies - 1)
+    ]
+    fn(*args)
+    torch.cuda.synchronize()
+    kept = []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        kept.append(fn(*sets[i % copies]))
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: int) -> float:
+    return n_bytes / HBM_BYTES_PER_MS
 
 
 def serve(searcher, queries, depth: int = 3, min_s: float = 5.0, max_reps: int = 10):
@@ -265,6 +288,36 @@ def single_k2_call(searcher, batch):
     )
 
 
+def head_band_combine_call(searcher, dense_q):
+    """The combine call the searcher makes for the head-band pair rows
+    ``dense_q`` on its decoded leaf: (FlatQueryBatch, CombineBatch,
+    target i32[W,128], sc f32[W,128], valid bool[W,128]), the lanes as
+    decode_score_lanes returns them."""
+    from rucene_tpu_torch.search import executor, flat_tables
+
+    plans = [searcher._plan_for(q) for q in dense_q]
+    rqs = [p.rq for p in plans]
+    doc_freqs, stats = searcher._gather_stats(rqs, plans)
+    b = len(rqs)
+    weight, occur, n_req, min_sh = flat_tables.build_clause_tables(
+        rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
+    )
+    leaf = searcher.reader.leaves[0]
+    gdev = leaf.device
+    bs, bc, fid = flat_tables.build_leaf_tables(leaf, rqs, b, 2, plans=plans)
+    work = flat_tables.build_flat_work(bs, bc, weight, fid, occur)[:6]
+    if not executor.dense_strategy(b, gdev.max_doc_padded, len(work[0])):
+        raise AssertionError("the head-band pair batch is not in the dense regime")
+    cache = flat_tables.build_leaf_cache(leaf, searcher.similarity, stats)
+    q = flat_tables.make_flat_batch(work, n_req, min_sh, cache, gdev)
+    cb = flat_tables.build_combine_batch(
+        work, b, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc, gdev.max_doc_padded,
+        leaf.torch_device,
+    )[0]
+    target, sc, valid = executor.decode_score_lanes(gdev, q)
+    return q, cb, target, sc, valid
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -281,7 +334,6 @@ def main() -> int:
     from rucene_tpu_torch.codec.device import build_device_segment
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
-    from rucene_tpu_torch.search import executor, flat_tables
     from rucene_tpu_torch.search import searcher as searcher_mod
     from rucene_tpu_torch.util.metrics import METRICS
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -396,28 +448,19 @@ def main() -> int:
     seg = build_device_segment(packed, dev)
     tables = (seg.data, seg.blk_off, seg.blk_doc_bits, seg.blk_freq_bits, seg.blk_base, seg.blk_count)
     fdt = gdev.freqs_dec.dtype
-    k1_ms = cuda_ms(lambda: cuda_decode.decode_blocks(*tables, freq_dtype=fdt))
-    k1_plain_ms = cuda_ms(lambda: cuda_decode.decode_blocks_plain(*tables, freq_dtype=fdt), reps=2)
+    k1_bytes = cuda_decode.min_bytes(
+        seg.blk_off, seg.blk_doc_bits, seg.blk_freq_bits, seg.blk_count,
+        lane_bytes=4 + torch.empty(0, dtype=fdt).element_size() + 1,
+    )
+    k1_ms = cuda_ms(cuda_decode.decode_blocks, (*tables, fdt), reps=8, copies=2)
+    k1_plain_ms = cuda_ms(cuda_decode.decode_blocks_plain, (*tables, fdt), reps=2, copies=1)
+    log(f"decode kernel: {k1_ms:.4f} ms over {packed.num_blocks} blocks, twin {k1_plain_ms:.3f} ms; "
+        f"must move {k1_bytes} bytes, bound {bound_ms(k1_bytes):.4f} ms")
     del seg, tables
 
-    plans = [searcher._plan_for(q) for q in dense_q]
-    rqs = [p.rq for p in plans]
-    doc_freqs, stats = searcher._gather_stats(rqs, plans)
-    b = len(rqs)
-    weight, occur, n_req, min_sh = flat_tables.build_clause_tables(
-        rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
-    )
-    bs, bc, fid = flat_tables.build_leaf_tables(leaf, rqs, b, 2, plans=plans)
-    work = flat_tables.build_flat_work(bs, bc, weight, fid, occur)[:6]
-    if not executor.dense_strategy(b, gdev.max_doc_padded, len(work[0])):
-        raise AssertionError("the head-band pair batch is not in the dense regime")
-    cache = flat_tables.build_leaf_cache(leaf, searcher.similarity, stats)
-    q = flat_tables.make_flat_batch(work, n_req, min_sh, cache, gdev)
-    cb = flat_tables.build_combine_batch(
-        work, b, packed.blk_first_doc, packed.blk_last_doc, gdev.max_doc_padded, dev
-    )[0]
-    target, sc, _valid = executor.decode_score_lanes(gdev, q)
-    args = (cb.bucket_ptr, target[cb.e_item], sc[cb.e_item], cb.e_row, cb.e_enc)
+    _q, cb, target, sc, _valid = head_band_combine_call(searcher, dense_q)
+    b = len(dense_q)
+    args = (cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc)
     shape = (b, gdev.max_doc_padded)
     out_k = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
     out_p = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
@@ -431,11 +474,42 @@ def main() -> int:
     if k3_err > tol:
         raise AssertionError(f"combine kernel scores differ from the twin by {k3_err} > {tol}")
     log(f"combine kernel matches the twin ({int(cb.e_item.numel())} entries, "
-        f"max abs err {k3_err:.3g}, tolerance 1e-5 relative)")
-    k3_ms = cuda_ms(lambda: cuda_combine.combine_lanes(*args, *out_k))
-    k3_plain_ms = cuda_ms(lambda: cuda_combine.combine_lanes_plain(*args, *out_p))
+        f"max abs err {k3_err:.3g}, tolerance 1e-5 relative); "
+        f"{int(cb.residue.numel())} residue items go to the executor's scatter")
+    k3_ms = cuda_ms(cuda_combine.combine_lanes, (*args, *out_k))
+    k3_plain_ms = cuda_ms(cuda_combine.combine_lanes_plain, (*args, *out_p), reps=2, copies=1)
+    # the library yardstick: zeroed planes, then index_add_ of every valid
+    # lane of the entries' items at row * md + doc (built before the timer)
+    md = gdev.max_doc_padded
+    items = torch.unique(cb.e_item.long())
+    item_row = torch.zeros(target.shape[0], dtype=torch.int64, device=dev)
+    item_row[cb.e_item.long()] = cb.e_row.long()
+    item_enc = torch.zeros(target.shape[0], dtype=torch.int32, device=dev)
+    item_enc[cb.e_item.long()] = cb.e_enc
+    lanes = target[items].long()
+    keep = lanes < md
+    flat = (item_row[items][:, None] * md + lanes)[keep]
+    lane_sc = sc[items][keep]
+    lane_enc = item_enc[items][:, None].expand_as(lanes)[keep]
+    out_l = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
 
-    del q, cb, args, out_k, out_p, target, sc, _valid
+    def library(out_s, out_c, flat, lane_sc, lane_enc):
+        out_s.zero_()
+        out_c.zero_()
+        out_s.view(-1).index_add_(0, flat, lane_sc)
+        out_c.view(-1).index_add_(0, flat, lane_enc)
+
+    library(*out_l, flat, lane_sc, lane_enc)
+    torch.cuda.synchronize()
+    if not torch.equal(out_l[1], out_k[1]):
+        raise AssertionError("the index_add_ yardstick's counts differ from the combine kernel's")
+    k3_lib_ms = cuda_ms(library, (*out_l, flat, lane_sc, lane_enc))
+    k3_bytes = cuda_combine.min_bytes(target, cb.e_item, cb.bucket_ptr.numel() - 1, b)
+    log(f"combine kernel: {k3_ms:.4f} ms, twin {k3_plain_ms:.3f} ms, index_add_ yardstick "
+        f"{k3_lib_ms:.4f} ms ({int(flat.numel())} lanes of {items.numel()} items); "
+        f"must move {k3_bytes} bytes, bound {bound_ms(k3_bytes):.4f} ms")
+
+    del _q, cb, args, out_k, out_p, out_l, target, sc, _valid, flat, lane_sc, lane_enc
 
     # 8. packed serving at full size: a second reader over the same segment
     packed_searcher, packed_qps, packed_results, k2_launches = serve_packed(
@@ -457,24 +531,29 @@ def main() -> int:
         if not torch.equal(g, w):
             raise AssertionError(f"scoring decode kernel {name} differ from the twin")
     k2_err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-    k2_ms = cuda_ms(lambda: cuda_decode.decode_score_blocks(*k2_args))
-    k2_plain_ms = cuda_ms(lambda: cuda_decode.decode_score_blocks_plain(*k2_args))
+    k2_ms = cuda_ms(cuda_decode.decode_score_blocks, k2_args)
+    k2_plain_ms = cuda_ms(cuda_decode.decode_score_blocks_plain, k2_args, reps=5, copies=1)
+    k2_bytes = cuda_decode.min_bytes(*k2_args[1:4], k2_args[5], lane_bytes=12, fid=k2_args[6])
     log(f"scoring decode kernel bit-equal to the twin over {k2_args[1].shape[0]} distinct blocks: "
-        f"{k2_ms:.4f} ms, twin {k2_plain_ms:.4f} ms")
+        f"{k2_ms:.4f} ms, twin {k2_plain_ms:.4f} ms; must move {k2_bytes} bytes, "
+        f"bound {bound_ms(k2_bytes):.4f} ms")
 
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
          "launches": launches["decode_blocks"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
+         "bound_by": "bytes", "library_ms": None},
         {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
          "launches": k2_launches, "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
+         "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
          "launches": launches["combine_lanes"], "max_abs_err": k3_err,
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
+         "bound_by": "bytes", "library_ms": k3_lib_ms},
     ], "qps": qps, "packed_qps": packed_qps, "n_docs": n_docs}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,20 @@ Replaces rucene_tpu/ops/pallas_combine.py::combine_lanes_pallas: the dense
 executor branch's accumulation of decoded lanes into per-row [rows,
 max_doc] score and clause-count planes. Entries (work item x overlapped
 doc bucket, from ops/combine_tables.py) arrive sorted by bucket;
-``bucket_ptr[b]:bucket_ptr[b+1]`` are bucket b's entries.
+``bucket_ptr[b]:bucket_ptr[b+1]`` are bucket b's entries, and each names
+the item whose lanes it adds, read in place from the decode's [W, 128]
+output.
 
-Bound: shared-memory atomics plus the entry reads. One CTA per bucket
-accumulates a 32-row x C_BUCKET tile in shared memory and writes it once,
-so device memory sees one write per output element instead of one atomic
-per lane. C_BUCKET is 512, half the TPU's 1024: the TPU tile of 32 x 1024
-(f32 + i32) is 256 KB, past the 227 KB a Hopper CTA may use. The bf16
-three-limb split and one-hot matmuls of the TPU kernel have no counterpart:
-scores add in f32 and counts in int32, exactly.
+Bound: device-memory bytes (min_bytes), mostly the rows x max_doc x 8
+bytes of output. Each CTA zeroes a shared-memory tile of one bucket
+(C_BUCKET docs) by up to 8 rows, adds its entries' in-bucket lanes with
+shared-memory atomics (a warp per entry, four lanes a thread, 16-byte
+loads) and writes the tile once in 16-byte stores; six such CTAs share an
+SM, so one's write-out overlaps another's adds. C_BUCKET is 512, half the
+TPU's 1024, and stays so: a smaller bucket would send more items to the
+executor's scatter residue (SPARSE_SPAN counts buckets) and cost the host
+more entries. The bf16 three-limb split and one-hot matmuls of the TPU
+kernel have no counterpart: scores add in f32 and counts in int32, exactly.
 
 A CPU tensor goes to the plain twin (an index_put_ with accumulate); a
 CUDA tensor launches the kernel or raises.
@@ -24,9 +29,10 @@ import torch
 
 from rucene_tpu_torch.ops.combine_tables import MAX_ROWS
 from rucene_tpu_torch.util.metrics import METRICS
+from rucene_tpu_torch.util.packing import BLOCK_SIZE
 
 LAUNCH_COUNTER = "kernel.combine_lanes"
-C_BUCKET = 512  # docs per bucket: a 32 x 512 x (4 + 4) B = 128 KB tile
+C_BUCKET = 512  # docs per bucket; must divide codec/device.DOC_AXIS_MULTIPLE
 
 
 def _check_out(out_score, out_counts, md):
@@ -40,25 +46,40 @@ def _check_out(out_score, out_counts, md):
         raise ValueError("combine_lanes: out must be contiguous f32/i32 [<=32, md]")
 
 
-def combine_lanes_plain(bucket_ptr, docs_e, sc_e, row_e, enc_e, out_score, out_counts):
-    """The twin: add every in-bucket lane of every entry into the outputs
-    (overwritten, not accumulated into)."""
+def min_bytes(target, e_item, n_buckets: int, n_rows: int) -> int:
+    """Device-memory bytes the combine must move: the lanes of each distinct
+    item once (every doc id, and the score of each lane that lands in a
+    bucket), 12 bytes of entry tables per entry, the bucket offsets, and
+    both output planes written once."""
+    items = torch.unique(e_item.long())
+    lanes = target[items]
+    landed = int(((lanes >= 0) & (lanes < n_buckets * C_BUCKET)).sum())
+    return (
+        items.numel() * BLOCK_SIZE * 4 + landed * 4 + e_item.numel() * 12
+        + (n_buckets + 1) * 4 + n_rows * n_buckets * C_BUCKET * 8
+    )
+
+
+def combine_lanes_plain(bucket_ptr, target, sc, e_item, e_row, e_enc, out_score, out_counts):
+    """The twin: add every in-bucket lane of every entry's item into the
+    outputs (overwritten, not accumulated into)."""
     rows, md = out_score.shape
     n_buckets = bucket_ptr.shape[0] - 1
     per_bucket = (bucket_ptr[1:] - bucket_ptr[:-1]).long()
     e_bucket = torch.repeat_interleave(
-        torch.arange(n_buckets, device=docs_e.device), per_bucket
+        torch.arange(n_buckets, device=target.device), per_bucket
     )
-    local = docs_e.long() - (e_bucket * C_BUCKET)[:, None]
-    r = row_e.long()[:, None]
+    item = e_item.long()
+    local = target[item].long() - (e_bucket * C_BUCKET)[:, None]
+    r = e_row.long()[:, None]
     keep = (local >= 0) & (local < C_BUCKET) & (r >= 0) & (r < rows)
     trash = rows * md
     idx = torch.where(keep, r * md + e_bucket[:, None] * C_BUCKET + local, trash)
-    acc_s = torch.zeros(trash + 1, dtype=torch.float32, device=docs_e.device)
-    acc_c = torch.zeros(trash + 1, dtype=torch.int32, device=docs_e.device)
-    acc_s.index_put_((idx.reshape(-1),), sc_e.reshape(-1), accumulate=True)
+    acc_s = torch.zeros(trash + 1, dtype=torch.float32, device=target.device)
+    acc_c = torch.zeros(trash + 1, dtype=torch.int32, device=target.device)
+    acc_s.index_put_((idx.reshape(-1),), sc[item].reshape(-1), accumulate=True)
     acc_c.index_put_(
-        (idx.reshape(-1),), enc_e.to(torch.int32)[:, None].expand_as(idx).reshape(-1),
+        (idx.reshape(-1),), e_enc.to(torch.int32)[:, None].expand_as(idx).reshape(-1),
         accumulate=True,
     )
     out_score.copy_(acc_s[:trash].view(rows, md))
@@ -66,40 +87,44 @@ def combine_lanes_plain(bucket_ptr, docs_e, sc_e, row_e, enc_e, out_score, out_c
     return out_score, out_counts
 
 
-def combine_lanes(bucket_ptr, docs_e, sc_e, row_e, enc_e, out_score, out_counts):
-    """bucket_ptr i32[NB+1] entry offsets per bucket; docs_e i32[E,128]
-    absolute doc ids (out-of-range ids are ignored); sc_e f32[E,128];
-    row_e i32[E] chunk-local row (< 32); enc_e i32[E] clause-count
+def combine_lanes(bucket_ptr, target, sc, e_item, e_row, e_enc, out_score, out_counts):
+    """bucket_ptr i32[NB+1] entry offsets per bucket; target i32[W,128]
+    absolute doc ids per item lane (ids outside the entry's bucket are
+    ignored); sc f32[W,128]; e_item i32[E] item of each entry (in [0, W));
+    e_row i32[E] chunk-local row (< 32); e_enc i32[E] clause-count
     encoding. Writes every element of out_score f32[rows, NB*C_BUCKET] and
     out_counts i32[rows, NB*C_BUCKET] (rows <= 32) and returns them."""
     n_buckets = bucket_ptr.shape[0] - 1
     _check_out(out_score, out_counts, n_buckets * C_BUCKET)
-    if docs_e.device.type == "cpu":
-        return combine_lanes_plain(bucket_ptr, docs_e, sc_e, row_e, enc_e,
+    if target.device.type == "cpu":
+        return combine_lanes_plain(bucket_ptr, target, sc, e_item, e_row, e_enc,
                                    out_score, out_counts)
     from rucene_tpu_torch.ops.cuda_build import check, kernels
 
-    if docs_e.device.type != "cuda":
-        raise ValueError(f"combine_lanes: unsupported device {docs_e.device}")
-    e = docs_e.shape[0]
+    if target.device.type != "cuda":
+        raise ValueError(f"combine_lanes: unsupported device {target.device}")
+    w, e = target.shape[0], e_item.shape[0]
     expect = (
         (bucket_ptr, torch.int32, (n_buckets + 1,)),
-        (docs_e, torch.int32, (e, 128)),
-        (sc_e, torch.float32, (e, 128)),
-        (row_e, torch.int32, (e,)),
-        (enc_e, torch.int32, (e,)),
+        (target, torch.int32, (w, BLOCK_SIZE)),
+        (sc, torch.float32, (w, BLOCK_SIZE)),
+        (e_item, torch.int32, (e,)),
+        (e_row, torch.int32, (e,)),
+        (e_enc, torch.int32, (e,)),
         (out_score, torch.float32, out_score.shape),
         (out_counts, torch.int32, out_score.shape),
     )
     for t, dt, shape in expect:
-        if (t.device != docs_e.device or t.dtype != dt or tuple(t.shape) != tuple(shape)
+        if (t.device != target.device or t.dtype != dt or tuple(t.shape) != tuple(shape)
                 or not t.is_contiguous()):
             raise ValueError("combine_lanes: bad device, dtype, shape or layout")
+    if any(t.data_ptr() % 16 for t in (target, sc, out_score, out_counts)):
+        raise ValueError("combine_lanes: lanes and outputs must be 16-byte aligned")
     rc = kernels().rtt_combine_lanes(
-        bucket_ptr.data_ptr(), docs_e.data_ptr(), sc_e.data_ptr(), row_e.data_ptr(),
-        enc_e.data_ptr(), out_score.data_ptr(), out_counts.data_ptr(),
+        bucket_ptr.data_ptr(), target.data_ptr(), sc.data_ptr(), e_item.data_ptr(),
+        e_row.data_ptr(), e_enc.data_ptr(), out_score.data_ptr(), out_counts.data_ptr(),
         n_buckets, C_BUCKET, out_score.shape[0], out_score.shape[1],
-        torch.cuda.current_stream(docs_e.device).cuda_stream,
+        torch.cuda.current_stream(target.device).cuda_stream,
     )
     check(rc, "rtt_combine_lanes")
     METRICS.incr(LAUNCH_COUNTER)

@@ -11,12 +11,18 @@ packed segment's executor calls decode its work items' blocks per batch
 BM25 denominator ``cache[fid, norm_byte]`` out of the [F, 256] table in
 place of the norm byte.
 
-Bound: device-memory bytes, a few hundred bytes read and ~900 written per
-block with no reuse. The kernels keep reads coalesced and write each
-output plane once (see the source). The Mosaic machinery of the TPU
-kernels (8-bit-limb matmul word fetch, shift-add scan, aligned 2048-word
-DMA windows, G=8 grouping, chunking for SMEM, the one-hot cval select and
-the static has_ef program split) has no counterpart here.
+Bound: device-memory bytes (min_bytes): the blocks' packed words and
+tables read once, 7-12 bytes a lane written once, with no reuse. At one
+batch's blocks that is a few microseconds of bandwidth, so the kernels are
+built against latency: a warp decodes one block, four consecutive lanes a
+thread, with no shared memory and no barrier; the header comes in one
+round trip and every plane's words in the next; FOR ids take an
+in-register scan plus one warp shuffle scan, Elias-Fano ids a shuffle scan
+of the 12 unary words' popcounts; stores are 16 bytes a thread. The Mosaic
+machinery of the TPU kernels (8-bit-limb matmul word fetch, shift-add
+scan, aligned 2048-word DMA windows, G=8 grouping, chunking for SMEM, the
+one-hot cval select and the static has_ef program split) has no
+counterpart here.
 
 A CPU tensor goes to the plain twin (ops/decode.py); a CUDA tensor
 launches the kernel or raises.
@@ -30,6 +36,7 @@ from rucene_tpu_torch.ops.decode import (
     decode_doc_blocks,
     decode_freq_blocks,
     decode_norm_blocks,
+    doc_plane_words,
 )
 from rucene_tpu_torch.util.metrics import METRICS
 from rucene_tpu_torch.util.packing import BLOCK_SIZE
@@ -37,6 +44,26 @@ from rucene_tpu_torch.util.packing import BLOCK_SIZE
 LAUNCH_COUNTER = "kernel.decode_blocks"
 SCORE_LAUNCH_COUNTER = "kernel.decode_score_blocks"
 PLAIN_CHUNK = 65536  # items per twin step: bounds its [W, 384] temporaries
+
+
+def min_bytes(off, dbits, fbits, count, lane_bytes: int, fid=None) -> int:
+    """Device-memory bytes a decode of W items must move: its [W] tables
+    (five, six with fid) read once, the packed words of each distinct
+    block with a live lane read once, the [256] cache row of each field
+    those blocks use (fid given: K2), and lane_bytes for each of the
+    W x 128 output lanes written once."""
+    live = count > 0
+    norm_words = (count[live].long() * 8 + 31) // 32  # one byte a valid lane, as packed
+    words = doc_plane_words(dbits[live].long()) + 4 * fbits[live].long() + norm_words
+    blocks, inv = torch.unique(off[live], return_inverse=True)
+    block_words = torch.zeros_like(blocks, dtype=torch.int64).scatter_(0, inv, words)
+    n_tables = 5 if fid is None else 6
+    rows = 0 if fid is None else torch.unique(fid[live]).numel()
+    w = off.shape[0]
+    return (
+        w * n_tables * 4 + int(block_words.sum()) * 4 + rows * 256 * 4
+        + w * BLOCK_SIZE * lane_bytes
+    )
 
 
 def decode_blocks_plain(data, off, dbits, fbits, base, count, freq_dtype=torch.int32):

@@ -84,7 +84,7 @@ class CombineBatch(NamedTuple):
     (flat_tables.build_combine_batch)."""
 
     bucket_ptr: torch.Tensor  # i32[NBk+1] entry offsets per doc bucket
-    e_item: torch.Tensor  # i64[E] work item per entry
+    e_item: torch.Tensor  # i32[E] work item per entry
     e_row: torch.Tensor  # i32[E] chunk-local row
     e_enc: torch.Tensor  # i32[E] clause-count encoding
     residue: torch.Tensor  # i64[R] items left to the plain scatter
@@ -143,7 +143,8 @@ def decode_score_lanes(dev: DeviceSegment, q: FlatQueryBatch):
 
 def _combine_dense(q, target, sc, valid, b, md, combine):
     """Dense [b, md] score and count accumulators: the combine kernel per
-    32-row chunk, then a plain scatter of the sparse residue items."""
+    32-row chunk (reading the items' lanes in place), then a plain scatter
+    of the sparse residue items."""
     trash = b * md  # one spare slot takes every out-of-range lane
     acc_s = torch.empty(trash + 1, dtype=torch.float32, device=sc.device)
     acc_c = torch.empty(trash + 1, dtype=torch.int32, device=sc.device)
@@ -154,7 +155,7 @@ def _combine_dense(q, target, sc, valid, b, md, combine):
     for cb in combine:
         hi = min(cb.row_lo + MAX_ROWS, b)
         combine_lanes(
-            cb.bucket_ptr, target[cb.e_item], sc[cb.e_item], cb.e_row, cb.e_enc,
+            cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc,
             score2d[cb.row_lo:hi], count2d[cb.row_lo:hi],
         )
     residue = torch.cat([cb.residue for cb in combine])

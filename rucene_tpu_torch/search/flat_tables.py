@@ -322,7 +322,7 @@ def make_flat_batch(work, n_required, min_should, cache, dev, dedupe: bool = Fal
 def build_combine_batch(arrays, b: int, blk_first, blk_last, mdp: int, device):
     """Dense-combine entry tables, one CombineBatch per 32-row chunk:
     entries (work item x overlapped C_BUCKET doc bucket) sorted by bucket,
-    with per-bucket offsets for the kernel's one-CTA-per-bucket grid.
+    with per-bucket offsets, as the combine kernel walks them.
     Items overlapping more than SPARSE_SPAN buckets go to the scatter
     residue (global rows)."""
     from rucene_tpu_torch.ops.combine_tables import MAX_ROWS, build_combine_tables
@@ -349,7 +349,7 @@ def build_combine_batch(arrays, b: int, blk_first, blk_last, mdp: int, device):
         out.append(
             CombineBatch(
                 bucket_ptr=_to(bucket_ptr, device, torch.int32),
-                e_item=_to(tbl.e_item[live], device, torch.int64),
+                e_item=_to(tbl.e_item[live], device),
                 e_row=_to(tbl.e_row[live], device),
                 e_enc=_to(tbl.e_enc[live], device),
                 residue=_to(tbl.residue_items, device, torch.int64),

@@ -18,6 +18,7 @@ from rucene_tpu_torch.codec.device import add_decoded_planes, build_device_segme
 from rucene_tpu_torch.codec.postings import packed_from_reference
 from rucene_tpu_torch.ops.cuda_decode import decode_blocks, decode_blocks_plain
 from tests.conftest import make_docs, random_corpus
+from torch_kernel_data import synthetic_blocks
 
 
 def _ef_heavy_segment():
@@ -135,3 +136,20 @@ def test_wrapper_takes_the_twin_on_cpu(packed):
         assert got.dtype == want.dtype
         assert torch.equal(got, want)
 
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_twin_matches_reference_on_every_width(seed):
+    """Synthetic blocks at every FOR width 0-32 and several EF low widths,
+    counts 1, 37 and 128, bases across the int32 range (ids wrap): the
+    twin equals rucene_tpu's XLA decoder bit for bit on every lane. The GPU
+    tests hold the kernels to the twin on the same blocks."""
+    data, off, dbits, fbits, base, count = synthetic_blocks(seed)
+    x_docs, x_freqs, x_norms = ref_device._decode_chunk(
+        jnp.asarray(data.numpy().view(np.uint32)), *(jnp.asarray(t.numpy()) for t in (
+            off, dbits, fbits, base, count)), has_ef=True,
+    )
+    docs, freqs, norms = decode_blocks_plain(data, off, dbits, fbits, base, count)
+    np.testing.assert_array_equal(docs.numpy(), np.asarray(x_docs))
+    np.testing.assert_array_equal(freqs.numpy(), np.asarray(x_freqs))
+    np.testing.assert_array_equal(norms.numpy(), np.asarray(x_norms))

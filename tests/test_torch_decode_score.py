@@ -20,6 +20,7 @@ from rucene_tpu_torch.ops.cuda_decode import (
     decode_blocks_plain,
     decode_score_blocks,
     decode_score_blocks_plain,
+    min_bytes,
 )
 from rucene_tpu_torch.ops.decode import INVALID_DOC
 from tests.test_torch_decode import _CORPORA
@@ -93,3 +94,24 @@ def test_wrapper_takes_the_twin_on_cpu(case):
     for g, w, dt in zip(got, want, (torch.int32, torch.int32, torch.float32)):
         assert g.dtype == w.dtype == dt
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kernel", ["decode_blocks", "decode_score_blocks"])
+def test_min_bytes_hand_count(kernel):
+    """Four items: a FOR block (5-bit docs, 2-bit freqs: 20 + 8 + 32 norm
+    words), an EF block of 37 lanes (low width 3: 12 + 12 doc words, 1-bit
+    freqs: 4, and ceil(37 / 4) = 10 norm words),
+    the first block again (read once) and an inert item (count 0: no
+    words, no cache row). K1 writes 4 + 2 + 1 bytes a lane, K2 12 and reads
+    the cache rows of fields 0 and 1."""
+    t = torch.tensor
+    off, dbits, fbits = t([0, 60, 0, 120]), t([5, EF_TAG + 3, 5, 7]), t([2, 1, 2, 3])
+    count = t([128, 37, 128, 0])
+    words = (60 + 38) * 4
+    if kernel == "decode_blocks":
+        want = 4 * 5 * 4 + words + 4 * 128 * 7
+        assert min_bytes(off, dbits, fbits, count, lane_bytes=7) == want == 4056
+    else:
+        want = 4 * 6 * 4 + words + 2 * 1024 + 4 * 128 * 12
+        got = min_bytes(off, dbits, fbits, count, lane_bytes=12, fid=t([0, 1, 0, 5]))
+        assert got == want == 8680

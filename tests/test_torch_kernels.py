@@ -17,7 +17,8 @@ import rucene_tpu_torch as T
 from rucene_tpu_torch.codec.device import build_device_segment
 from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
 from rucene_tpu_torch.ops import cuda_decode
-from rucene_tpu_torch.ops.cuda_combine import combine_lanes, combine_lanes_plain
+from rucene_tpu_torch.ops.combine_tables import SPARSE_SPAN
+from rucene_tpu_torch.ops.cuda_combine import C_BUCKET, combine_lanes, combine_lanes_plain
 from rucene_tpu_torch.ops.cuda_decode import (
     decode_blocks,
     decode_blocks_plain,
@@ -29,7 +30,13 @@ from rucene_tpu_torch.search.flat_tables import build_combine_batch
 from rucene_tpu_torch.util.metrics import METRICS
 from rucene_tpu_torch.util.packing import EF_TAG
 from torch_hitcheck import assert_batches_strict
-from torch_kernel_data import combine_arrays, port_segment, synthetic_items
+from torch_kernel_data import (
+    combine_arrays,
+    combine_entries,
+    port_segment,
+    synthetic_blocks,
+    synthetic_items,
+)
 
 
 @pytest.fixture
@@ -80,13 +87,69 @@ def test_decode_score_kernel_matches_twin(card, kind):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("freq_dtype", [torch.int16, torch.int32])
+def test_decode_kernels_every_width(card, seed, freq_dtype):
+    """K1 and K2 on synthetic blocks at every FOR width 0-32 and EF low
+    widths 0, 1, 5, 12, 20, with count 1, 37 and 128 (and K2 on inert
+    copies): bit-equal to the twins, int32 wrap included."""
+    data, off, dbits, fbits, base, count = synthetic_blocks(seed)
+    if freq_dtype == torch.int16:
+        fbits = fbits.clamp(max=15)  # the residency stores int16 freqs only below 2^15
+    tables = (data, off, dbits, fbits, base, count)
+    want = decode_blocks_plain(*tables, freq_dtype=freq_dtype)
+    got = decode_blocks(*(t.to(card) for t in tables), freq_dtype=freq_dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+    idx = torch.arange(2 * off.shape[0]) % off.shape[0]
+    cnt = count[idx].clone()
+    cnt[off.shape[0]:: 3] = 0  # inert items
+    rng = np.random.default_rng(seed)
+    fid = torch.from_numpy((np.arange(len(idx)) % 3).astype(np.int32))
+    cache = torch.from_numpy(np.abs(rng.standard_normal((3, 256))).astype(np.float32) + 0.25)
+    args = (data, off[idx], dbits[idx], fbits[idx], base[idx], cnt, fid, cache)
+    want = decode_score_blocks_plain(*args)
+    got = decode_score_blocks(*(a.to(card) for a in args))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows", [1, 7, 32])
+@pytest.mark.parametrize("seed", [2, 6])
+def test_combine_kernel_matches_twin(card, seed, n_rows):
+    """Hand-built entries (items repeated over up to SPARSE_SPAN buckets,
+    straddling bucket edges, all-invalid items) for 1, 7 and 32 rows:
+    counts exact, scores within 1e-5 relative, every element written."""
+    md = 2 * SPARSE_SPAN * C_BUCKET
+    ptr, target, sc, e_item, e_row, e_enc, *_ = combine_entries(
+        b=n_rows, md=md, w=200, max_span=SPARSE_SPAN, seed=seed
+    )
+    args = tuple(torch.from_numpy(a).to(card) for a in (ptr, target, sc, e_item, e_row, e_enc))
+
+    def out():
+        return (torch.full((n_rows, md), np.nan, device=card),
+                torch.full((n_rows, md), -1, dtype=torch.int32, device=card))
+
+    got = combine_lanes(*args, *out())
+    want = combine_lanes_plain(*args, *out())
+    assert torch.equal(got[1], want[1])
+    err = (got[0] - want[0]).abs()
+    assert bool((err <= 1e-5 * want[0].abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("seed,b,w", [(1, 32, 96), (4, 7, 300)])
-def test_combine_kernel_matches_twin(card, seed, b, w):
+def test_combine_kernel_on_executor_tables(card, seed, b, w):
+    """The executor's own entry tables (build_combine_batch) over synthetic
+    items, lanes read in place."""
     md = 4096
     docs, sc, rows, encs, valid, bf, bl = synthetic_items(w=w, b=b, md=md, seed=seed)
     (cb,) = build_combine_batch(combine_arrays(rows, encs, valid), b, bf, bl, md, card)
-    args = (cb.bucket_ptr, torch.from_numpy(docs).to(card)[cb.e_item],
-            torch.from_numpy(sc).to(card)[cb.e_item], cb.e_row, cb.e_enc)
+    args = (cb.bucket_ptr, torch.from_numpy(docs).to(card), torch.from_numpy(sc).to(card),
+            cb.e_item, cb.e_row, cb.e_enc)
 
     def out():
         return (torch.full((b, md), np.nan, device=card),
