@@ -5,17 +5,28 @@
 Builds the CUDA kernels and the native library from this checkout, then:
   1. prints the toolchain and the card (name, power limit);
   2. builds the bench's Zipf corpus (bench.py's generator and seed,
-     reimplemented here so nothing imports rucene_tpu or jax), packs it
-     and opens it with the port's IndexReader;
+     reimplemented here so nothing imports rucene_tpu or jax), its query
+     mix with phrase rows (bigrams from the first 5,000 docs, as bench.py
+     draws them) and the same mix without them, packs the corpus and opens
+     it with the port's IndexReader;
   3. builds the decoded residency through the decode kernel and holds it
-     against the plain twin on the CPU, every block bit for bit;
-  4. serves the bench mix (512 queries, batch 256, k=100, no phrases)
-     through search_batch_async: a warm pass, then timed pipelined passes;
+     against the plain twin on the CPU, every block bit for bit; then
+     prewarms the resident phrase planes (searcher.prewarm_phrase_planes,
+     as bench.py does) and logs their count, seconds and bytes;
+  4. serves the bench's whole mix (512 queries, batch 256, k=100, 64
+     phrase rows) through search_batch_async: a warm pass, then timed
+     pipelined passes; then the mix without phrases (qps_no_phrase, the
+     figure earlier runs recorded). Every phrase row must take the phrase
+     route, both device phrase routes (candidate tables and position
+     planes) must be taken, and at 1M docs no phrase row may go to the
+     scalar engine or the host;
   5. serves 32 two-term rows over head-band terms through the same
      search_batch (dense regime, no forced strategy), so the combine
      kernel runs on the main path even if the mix takes only the
      candidate branch;
-  6. serves 16 of the queries on the CPU and compares them hit for hit;
+  6. serves 16 of the mix's queries, two of each of its 8 kinds
+     (single-term, OR, AND, phrase), on the CPU and compares them hit for
+     hit;
   7. checks each kernel's launch count from steps 3-5 (and that the mix's
      single-term rows took the single route), then replays one call of
      each kernel from that path (the residency decode; the head-band
@@ -23,11 +34,12 @@ Builds the CUDA kernels and the native library from this checkout, then:
      times both, and the combine's library yardstick (zeroed planes plus
      index_add_ of the items' valid lanes, which the port never calls);
   8. packed serving: a second reader over the same segment, built with
-     RUCENE_DECODED=0 (no decoded planes), serves the mix the same way
-     with the plain decode twins disabled, so every block decode is the
-     scoring decode kernel; its launches and the single route are counted
-     on this path alone, and 16 of its TopDocs must equal the decoded
-     run's bit for bit;
+     RUCENE_DECODED=0 (no decoded planes), drops the decoded reader's
+     planes, prewarms its own and serves the whole mix the same way with
+     the plain decode twins disabled: term and boolean rows decode through
+     the scoring decode kernel, phrase rows and plane builds through the
+     decode kernel. Launches and routes are counted on this path alone,
+     and the 16 sampled TopDocs must equal the decoded run's bit for bit;
   9. replays the scoring decode of the first packed batch's single-term
      rows (their distinct blocks, fids and cache) against its plain
      version on the card: docs, freqs and cval bit-equal; times both.
@@ -36,7 +48,8 @@ wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
 L2), enqueued behind a sleep so that host launch time is not counted
 (cuda_ms). Any failure raises. The last three lines are the kernels'
-JSON record, the card's name and power limit, and the device line.
+JSON record (with qps, packed_qps and qps_no_phrase), the card's name and
+power limit, and the device line.
 """
 
 from __future__ import annotations
@@ -63,7 +76,7 @@ def log(msg: str) -> None:
     print(f"# {msg}", flush=True)
 
 
-# --- the bench workload (bench.py:38-172, without phrase texts) -------------
+# --- the bench workload (bench.py:38-172) ------------------------------------
 
 
 def zipf_vocab(vocab_size: int = 20000):
@@ -87,20 +100,44 @@ def build_corpus(n_docs: int, vocab_size: int = 20000, seed: int = 7):
     return texts, vocab, probs
 
 
-def build_queries(n_queries: int, vocab, probs, seed: int = 13):
-    """bench.build_queries with no phrase texts: 3/8 single-term, 2/8
-    two-term OR, 3/8 two-term AND, from the mid-frequency band."""
-    from rucene_tpu_torch import BooleanQuery, Term, TermQuery
+def sample_bigrams(texts, n: int, seed: int = 77) -> list[tuple[str, str]]:
+    """bench.sample_bigrams: consecutive word pairs drawn from corpus text."""
+    rng = np.random.default_rng(seed)
+    out = []
+    if not texts:
+        return out
+    for _ in range(n * 4):
+        words = texts[int(rng.integers(0, len(texts)))].split()
+        if len(words) < 2:
+            continue
+        j = int(rng.integers(0, len(words) - 1))
+        out.append((words[j], words[j + 1]))
+        if len(out) >= n:
+            break
+    return out
+
+
+def build_queries(n_queries: int, vocab, probs, seed: int = 13, phrase_texts=None):
+    """bench.build_queries: 3/8 single-term, 2/8 two-term OR, 2/8 two-term
+    AND from the mid-frequency band, and 1/8 two-term exact phrases drawn
+    from phrase_texts (without phrase texts, AND rows take their place)."""
+    from rucene_tpu_torch import BooleanQuery, PhraseQuery, Term, TermQuery
 
     rng = np.random.default_rng(seed)
     band = np.arange(10, min(5000, len(vocab)))
     band_p = probs[band] / probs[band].sum()
+    bigrams = sample_bigrams(phrase_texts or [], (n_queries + 7) // 8)
     queries = []
+    bi = 0
     for i in range(n_queries):
         kind = i % 8
         t1 = vocab[rng.choice(band, p=band_p)]
         t2 = vocab[rng.choice(band, p=band_p)]
-        if kind in (0, 1, 2):
+        if kind == 7 and bigrams:
+            w1, w2 = bigrams[bi % len(bigrams)]
+            bi += 1
+            queries.append(PhraseQuery("body", [w1, w2]))
+        elif kind in (0, 1, 2):
             queries.append(TermQuery(Term("body", t1)))
         elif kind in (3, 4):
             q = BooleanQuery()
@@ -203,14 +240,49 @@ def serve(searcher, queries, depth: int = 3, min_s: float = 5.0, max_reps: int =
     return reps * len(queries) / wall, results
 
 
-def serve_packed(packed, queries, dev, card, split):
+def phrase_gates(counters, n_rows: int, n_phrase: int, n_queries: int, full: bool, where: str):
+    """The phrase gates over one serving stage's counter deltas: every
+    phrase row took the phrase route; at full size both device phrase
+    routes were taken and no phrase row went to the scalar engine or the
+    host."""
+    rows = counters.get("route.device", 0) + counters.get("route.phrase", 0)
+    passes = rows // n_queries
+    if rows != passes * n_queries or counters.get("route.phrase", 0) != passes * n_phrase:
+        raise AssertionError(f"{where}: {counters.get('route.phrase', 0)} phrase-route rows "
+                             f"over {rows} rows, expected {n_phrase} in every {n_queries}")
+    log(f"{where} phrase rows: " + " ".join(
+        f"{k}={counters.get(k, 0)}" for k in (
+            "route.phrase", "search.phrase_device", "search.phrase_plane",
+            "search.phrase_plane_build", "search.phrase_plane_denied",
+            "search.phrase_scalar_route", "search.phrase_host_fallback",
+            "search.phrase_pruned_blocks",
+        )
+    ) + f" over {passes} passes")
+    if not full:
+        return
+    for name in ("search.phrase_device", "search.phrase_plane"):
+        if counters.get(name, 0) <= 0:
+            raise AssertionError(f"{where}: no phrase row took {name}")
+    for name in ("search.phrase_scalar_route", "search.phrase_host_fallback"):
+        if counters.get(name, 0):
+            raise AssertionError(f"{where}: {counters[name]} phrase rows took {name}")
+
+
+def counter_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+def serve_packed(packed, queries, dev, card, split, n_phrase, full):
     """Phase 8: a reader over ``packed`` whose segment is built with
     RUCENE_DECODED=0, serving the mix with the plain decode twins replaced
-    by a raise. Counts are reset just before and read just after. Returns
-    (searcher, qps, last pass's TopDocs, scoring-decode launches)."""
+    by a raise, after dropping the decoded reader's position planes and
+    prewarming its own (through K1). Counts are reset just before and read
+    just after. Returns (searcher, qps, last pass's TopDocs, K1 launches,
+    K2 launches)."""
     from rucene_tpu_torch import IndexSearcher
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_decode
+    from rucene_tpu_torch.search import phrase_path
     from rucene_tpu_torch.util.metrics import METRICS
 
     def refuse(*_a, **_k):
@@ -218,6 +290,7 @@ def serve_packed(packed, queries, dev, card, split):
 
     twins = (cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain)
     prev = os.environ.get("RUCENE_DECODED")
+    phrase_path._PLANE_CACHE.clear()  # the decoded reader's planes
     METRICS.reset()
     torch.cuda.reset_peak_memory_stats()
     cuda_decode.decode_blocks_plain = cuda_decode.decode_score_blocks_plain = refuse
@@ -233,12 +306,20 @@ def serve_packed(packed, queries, dev, card, split):
     try:
         if pdev.docs_dec is not None or pdev.freqs_dec is not None or pdev.norm_dec is not None:
             raise AssertionError("the packed reader built decoded planes")
+        t = time.perf_counter()
+        n_planes = searcher.prewarm_phrase_planes()
+        torch.cuda.synchronize()
+        log(f"packed reader prewarmed {n_planes} phrase planes in {time.perf_counter() - t:.2f}s "
+            f"({phrase_path._plane_cache_bytes() / 2**20:.0f} MiB) through the decode kernel")
+        before = METRICS.snapshot()["counters"]
         for i in range(0, len(queries), BATCH):  # warm pass
             searcher.search_batch(queries[i : i + BATCH], k=K)
         qps, results = serve(searcher, queries)
     finally:
         cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain = twins
     counters = METRICS.snapshot()["counters"]  # the packed path ends here
+    k1 = counters.get(cuda_decode.LAUNCH_COUNTER, 0)
+    k1_serving = k1 - before.get(cuda_decode.LAUNCH_COUNTER, 0)
     k2 = counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
     log(f"packed mix: {qps:.1f} QPS ({len(queries)} queries, batch {BATCH}, k={K}) on {card}; "
         f"packed words {pdev.data.numel() * 4 / 2**20:.0f} MiB, peak device memory "
@@ -248,9 +329,13 @@ def serve_packed(packed, queries, dev, card, split):
         raise AssertionError("the scoring decode kernel never launched on the packed path")
     if split and counters.get("route.single", 0) <= 0:
         raise AssertionError("no packed row took the single-term route")
-    if counters.get(cuda_decode.LAUNCH_COUNTER, 0):
-        raise AssertionError("the packed reader launched the residency decode")
-    return searcher, qps, results, k2
+    if k1_serving <= 0:
+        raise AssertionError("the packed reader's phrase rows never launched the decode kernel")
+    log(f"decode kernel launches on the packed path: {k1} ({k1 - k1_serving} in the prewarm, "
+        f"{k1_serving} serving phrase rows)")
+    phrase_gates(counter_delta(counters, before), len(queries), n_phrase, len(queries), full,
+                 "packed mix")
+    return searcher, qps, results, k1, k2
 
 
 def single_k2_call(searcher, batch):
@@ -334,6 +419,7 @@ def main() -> int:
     from rucene_tpu_torch.codec.device import build_device_segment
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
+    from rucene_tpu_torch.search import phrase_path
     from rucene_tpu_torch.search import searcher as searcher_mod
     from rucene_tpu_torch.util.metrics import METRICS
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -364,7 +450,9 @@ def main() -> int:
     # 2. corpus -> packed index -> reader
     t = time.perf_counter()
     texts, vocab, probs = build_corpus(n_docs)
-    queries = build_queries(N_QUERIES, vocab, probs)
+    queries = build_queries(N_QUERIES, vocab, probs, phrase_texts=texts[:5000])
+    queries_no_phrase = build_queries(N_QUERIES, vocab, probs)
+    n_phrase = sum(type(q).__name__ == "PhraseQuery" for q in queries)
     packed = pack_corpus(texts)
     del texts
     from rucene_tpu_torch.util.packing import EF_TAG
@@ -377,6 +465,8 @@ def main() -> int:
     reader = IndexReader([SegmentSnapshot("bench", packed)])
     searcher = IndexSearcher(reader, device=dev)
     leaf = reader.leaves[0]
+    # at full size the device must answer every phrase row
+    full = n_docs >= max(searcher.PHRASE_SCALAR_MAX_DOCS, searcher.PHRASE_PLANE_MIN_DOCS)
 
     METRICS.reset()  # counts from here to the read below are the main path's
     # 3. decoded residency through the decode kernel
@@ -400,12 +490,33 @@ def main() -> int:
             raise AssertionError(f"decode kernel differs from its twin at blocks {bad}")
         k1_err = max(k1_err, int((got.long() - ref.long()).abs().max()))
     log(f"decode kernel bit-equal to the twin over all {packed.num_blocks} blocks")
+    t = time.perf_counter()
+    n_planes = searcher.prewarm_phrase_planes()
+    torch.cuda.synchronize()
+    prewarm_s = time.perf_counter() - t
+    plane_mib = phrase_path._plane_cache_bytes() / 2**20
+    log(f"prewarmed {n_planes} phrase planes in {prewarm_s:.2f}s: {plane_mib:.0f} MiB "
+        f"({searcher._plane_words(leaf, 'body')} words a doc; plane budget "
+        f"{searcher._plane_budget_bytes(leaf) / 2**30:.1f} GiB)")
 
-    # 4. the bench mix, pipelined
+    # 4. the bench's whole mix, pipelined, then the mix without phrases
+    torch.cuda.reset_peak_memory_stats()
+    before = METRICS.snapshot()["counters"]
+    t = time.perf_counter()
     for i in range(0, len(queries), BATCH):  # warm pass
         searcher.search_batch(queries[i : i + BATCH], k=K)
+    log(f"warm pass of the whole mix in {time.perf_counter() - t:.2f}s")
     qps, mix_results = serve(searcher, queries)
-    log(f"bench mix: {qps:.1f} QPS ({N_QUERIES} queries, batch {BATCH}, k={K}) on {card}")
+    torch.cuda.synchronize()
+    mix_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"bench mix: {qps:.1f} QPS ({N_QUERIES} queries, {n_phrase} phrase rows, batch {BATCH}, "
+        f"k={K}) on {card}; peak device memory {mix_peak:.2f} GiB")
+    phrase_gates(counter_delta(METRICS.snapshot()["counters"], before), N_QUERIES, n_phrase,
+                 N_QUERIES, full, "decoded mix")
+    for i in range(0, len(queries_no_phrase), BATCH):  # warm pass
+        searcher.search_batch(queries_no_phrase[i : i + BATCH], k=K)
+    qps_no_phrase, _ = serve(searcher, queries_no_phrase)
+    log(f"bench mix without phrases: {qps_no_phrase:.1f} QPS on {card}")
     counters = METRICS.snapshot()["counters"]
 
     # 5. the combine kernel on the main path: the mix may take only the
@@ -433,15 +544,16 @@ def main() -> int:
     if split and counters.get("route.single", 0) <= 0:
         raise AssertionError("no mix row took the single-term route on the decoded reader")
 
-    # 6. 16 queries on the CPU, hit for hit
-    sample_idx = list(range(0, N_QUERIES, N_QUERIES // 16))[:16]
+    # 6. 16 queries on the CPU, hit for hit: two of each of the mix's 8 kinds
+    sample_idx = [i for kind in range(8) for i in (kind, kind + 8 * 31)]
     cpu_reader = IndexReader([SegmentSnapshot("bench", packed)])
     cpu_searcher = IndexSearcher(cpu_reader, device="cpu")
     t = time.perf_counter()
     cpu_hits = cpu_searcher.search_batch([queries[i] for i in sample_idx], k=K)
     for i, want_td in zip(sample_idx, cpu_hits):
         assert_topdocs_strict(mix_results[i], want_td)
-    log(f"16 queries match the CPU run hit for hit ({time.perf_counter() - t:.1f}s)")
+    log(f"16 queries ({', '.join(sorted({type(queries[i]).__name__ for i in sample_idx}))}) "
+        f"match the CPU run hit for hit ({time.perf_counter() - t:.1f}s)")
     del cpu_reader, cpu_searcher
 
     # 7. each kernel against its plain version on the card, and times
@@ -512,14 +624,15 @@ def main() -> int:
     del _q, cb, args, out_k, out_p, out_l, target, sc, _valid, flat, lane_sc, lane_enc
 
     # 8. packed serving at full size: a second reader over the same segment
-    packed_searcher, packed_qps, packed_results, k2_launches = serve_packed(
-        packed, queries, dev, card, split
+    packed_searcher, packed_qps, packed_results, k1_packed, k2_launches = serve_packed(
+        packed, queries, dev, card, split, n_phrase, full
     )
     for i in sample_idx:
         got_td, want_td = packed_results[i], mix_results[i]
         if got_td.total_hits != want_td.total_hits or got_td.score_docs != want_td.score_docs:
             raise AssertionError(f"packed query {i} differs from the decoded run")
-    log("16 packed queries equal the decoded run's bit for bit (docs, f32 scores, total_hits)")
+    log("16 packed queries (two of each kind) equal the decoded run's bit for bit "
+        "(docs, f32 scores, total_hits)")
 
     # 9. the scoring decode of the first packed batch's single-term rows
     # against its plain version on the card
@@ -541,7 +654,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
-         "launches": launches["decode_blocks"], "max_abs_err": k1_err,
+         "launches": launches["decode_blocks"] + k1_packed, "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
@@ -554,7 +667,9 @@ def main() -> int:
          "launches": launches["combine_lanes"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
-    ], "qps": qps, "packed_qps": packed_qps, "n_docs": n_docs}))
+    ], "qps": qps, "packed_qps": packed_qps, "qps_no_phrase": qps_no_phrase,
+        "n_docs": n_docs, "n_phrase_rows": n_phrase, "prewarm_planes": n_planes,
+        "prewarm_s": prewarm_s, "plane_mib": plane_mib, "mix_peak_gib": mix_peak}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Device-resident segment tensors (counterpart of rucene_tpu/codec/device.py).
 
-A DeviceSegment holds one segment's block tables, live mask and
-``blk_fid`` as torch tensors on one device, in one of two forms
-(decoded_policy picks):
+A DeviceSegment holds one segment's block tables, live mask, ``blk_fid``,
+norms plane and position stream as torch tensors on one device, in one of
+two forms (decoded_policy picks):
 - decoded: every block decoded once into resident planes by the decode
   kernel (ops/cuda_decode.decode_blocks) on CUDA, its plain twin on the
   CPU; the packed words are dropped;
@@ -10,11 +10,16 @@ A DeviceSegment holds one segment's block tables, live mask and
   its work items' blocks with the scoring decode kernel
   (ops/cuda_decode.decode_score_blocks); the planes stay None.
 
+The norms plane (u8[F, MDp]), the packed position stream and the
+per-block position bases serve the phrase path (search/phrase_device.py,
+ops/phrase_plane.py) in both forms.
+
 Left out, as TPU-only machinery: the +2048-word Mosaic pad (a pad of 2 zero
-words keeps every 2-word read in bounds), the pow2 doc-axis and block
-buckets (the doc axis rounds up to a multiple of 1024 so dense combine
-tiles divide it), tf planes, positions and norms planes (not on this
-slice's path).
+words keeps every 2-word read in bounds, in the postings words and the
+position stream alike), the pow2 doc-axis, block and position buckets (the
+doc axis rounds up to a multiple of 1024 so dense combine tiles divide it)
+and ``blk_max_freq`` (callers read the host copy). The tf planes are not
+ported yet (ROADMAP.md §1 item 7).
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ class DeviceSegment:
     blk_count: torch.Tensor  # i32[NB]
     live: torch.Tensor  # bool[MDp] (padding docs are dead)
     blk_fid: torch.Tensor | None = None  # i32[NB] norms/cache row per block
+    norms: torch.Tensor | None = None  # u8[F, MDp] norm bytes (zero rows for norm-less fields)
+    positions: torch.Tensor | None = None  # i32[P + pad] packed position deltas (u32 bits)
+    blk_pos_base: torch.Tensor | None = None  # i32[NB] within-term occurrence index of a block's start
     # --- decoded residency (add_decoded_planes); None when packed ---
     docs_dec: torch.Tensor | None = None  # i32[NB,128] local doc ids, INVALID pad
     freqs_dec: torch.Tensor | None = None  # i16|i32[NB,128], 0 pad
@@ -66,6 +74,13 @@ def build_device_segment(
     live_arr[: packed.max_doc] = True if live is None else live[: packed.max_doc]
     data = np.zeros(len(packed.data) + DATA_PAD_WORDS, np.uint32)
     data[: len(packed.data)] = packed.data
+    positions = np.zeros(len(packed.positions) + DATA_PAD_WORDS, np.uint32)
+    positions[: len(packed.positions)] = packed.positions
+    n_fields = max((pf.field_id for pf in packed.fields.values()), default=-1) + 1
+    norms = np.zeros((max(n_fields, 1), mdp), np.uint8)
+    for name, pf in packed.fields.items():
+        if name in packed.norms:
+            norms[pf.field_id, : packed.max_doc] = packed.norms[name]
 
     def put(a, dtype=torch.int32):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
@@ -79,6 +94,9 @@ def build_device_segment(
         blk_count=put(packed.blk_count),
         live=put(live_arr, torch.bool),
         blk_fid=put(blk_fid_host(packed)),
+        norms=put(norms, torch.uint8),
+        positions=put(positions.view(np.int32)),
+        blk_pos_base=put(packed.blk_pos_base),
     )
 
 
@@ -102,7 +120,8 @@ def blk_fid_host(packed: PackedSegment) -> np.ndarray:
 def add_decoded_planes(dev: DeviceSegment, freq_dtype=torch.int32) -> DeviceSegment:
     """Decode every postings block once into resident planes (one decode
     kernel launch on CUDA; the twin on the CPU), then drop the packed words:
-    every consumer of a decoded segment reads the planes."""
+    every consumer of a decoded segment reads the planes. The norms plane,
+    the position stream and the block position bases stay."""
     from rucene_tpu_torch.ops.cuda_decode import decode_blocks
 
     docs, freqs, norms = decode_blocks(

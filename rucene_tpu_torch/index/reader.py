@@ -1,5 +1,6 @@
 """Read side: SegmentSnapshot and IndexReader (counterpart of
-rucene_tpu/index/reader.py, slimmed to what the term/boolean slice reads).
+rucene_tpu/index/reader.py, slimmed to what the term, boolean and phrase
+rows read).
 
 A snapshot builds its DeviceSegment lazily on first search, on the device
 its reader names, decoded or packed as codec/device.decoded_policy says
@@ -24,6 +25,12 @@ from rucene_tpu_torch.codec.device import (
 )
 from rucene_tpu_torch.codec.postings import PackedSegment
 from rucene_tpu_torch.search.similarity import CollectionStats
+from rucene_tpu_torch.util.packing import (
+    EF_TAG,
+    EF_UNARY_WORDS,
+    decode_ef_doc_plane,
+    unpack_block,
+)
 
 
 @dataclass(frozen=True)
@@ -33,6 +40,8 @@ class TermRecord:
     total_tf: int
     block_start: int
     block_count: int
+    pos_width: int = 32  # packed position-delta bit width
+    pos_word_start: int = 0  # word offset of the term's position stream
 
 
 class SegmentSnapshot:
@@ -76,7 +85,39 @@ class SegmentSnapshot:
             total_tf=int(pf.total_tf[ord_]),
             block_start=int(pf.block_start[ord_]),
             block_count=int(pf.block_count[ord_]),
+            pos_width=int(pf.pos_width[ord_]) if pf.pos_width is not None else 32,
+            pos_word_start=int(pf.pos_word_start[ord_]) if pf.pos_word_start is not None else 0,
         )
+
+    def read_postings(self, field: str, text: str):
+        """Host decode of one term's postings: (docs i64[df], freqs
+        i64[df]), or None for an absent term. The phrase path's block
+        selection reads the rarest term's docs here."""
+        rec = self.term_record(field, text)
+        if rec is None:
+            return None
+        p = self.packed
+        docs = np.empty(rec.doc_freq, dtype=np.int64)
+        freqs = np.empty(rec.doc_freq, dtype=np.int64)
+        out = 0
+        for bi in range(rec.block_start, rec.block_start + rec.block_count):
+            cnt = int(p.blk_count[bi])
+            off = int(p.blk_off[bi])
+            dbits = int(p.blk_doc_bits[bi])
+            fbits = int(p.blk_freq_bits[bi])
+            if dbits >= EF_TAG:
+                dwlen = 4 * (dbits - EF_TAG) + EF_UNARY_WORDS
+                v = decode_ef_doc_plane(p.data[off : off + dwlen], dbits - EF_TAG)
+                docs[out : out + cnt] = int(p.blk_base[bi]) + v[:cnt]
+            else:
+                dwlen = 4 * dbits
+                dwords = p.data[off : off + dwlen].astype(np.uint64)
+                deltas = unpack_block(dwords, dbits)[:cnt].astype(np.int64)
+                docs[out : out + cnt] = int(p.blk_base[bi]) + np.cumsum(deltas)
+            fwords = p.data[off + dwlen : off + dwlen + 4 * fbits].astype(np.uint64)
+            freqs[out : out + cnt] = unpack_block(fwords, fbits)[:cnt]
+            out += cnt
+        return docs, freqs
 
     def field_stats(self, field: str) -> CollectionStats | None:
         st = self.packed.stats.get(field)

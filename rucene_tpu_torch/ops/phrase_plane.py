@@ -1,0 +1,198 @@
+"""Dense position-plane phrase matching (counterpart of
+rucene_tpu/ops/phrase_plane.py): heavy exact phrases, whose candidate
+tables (search/phrase_device.py) would not fit.
+
+Each term becomes a bit plane over the whole doc space, built once per
+(leaf, field, term) and cached by the searcher (search/phrase_path.py):
+
+    plane[doc] = 32 * words bits, bit p set iff the term occurs at position p
+
+An n-term exact phrase is then a shifted AND and a popcount per doc:
+
+    pf[doc] = popcount( plane_0 & (plane_1 >> 1) & ... & (plane_n >> n-1) )
+
+followed by BM25 and the dense top-k. Docs with more than FMAX
+occurrences of a term, or a position past the plane, are flagged in the
+term's overflow column; a row that meets one goes whole to the scalar
+engine, so results stay exact.
+
+torch has no unsigned 32-bit type worth trusting on CUDA, so the plane is
+int32 holding the u32 bits: the build's scatter adds distinct powers of
+two with ``index_add_`` (a term's (doc, position) bits are distinct, so the
+sum is the OR, bit 31 included as -2^31; integer atomics keep it
+deterministic), ``_shift_right`` masks the sign fill of ``>>``, and the
+popcount is a SWAR count on int64 lanes (two plane words a lane, the sign
+bit counted apart so that no step overflows). The position stream is
+unpacked in int64 with ``& 0xFFFFFFFF`` (``unpack_positions``).
+
+On a packed leaf a build chunk's docs and freqs come from the decode
+kernel (ops/cuda_decode.decode_blocks, K1) over the chunk's gathered block
+tables; on a decoded leaf they are row gathers of the resident planes
+(``work_lanes``). The reference's ``lax.scan`` over BUILD_CHUNK items is a
+plain chunk loop. Left out: ``MAX_BUILD_ITEMS`` and its slicing in the
+caller (a TPU worker fault), the pow2 work padding, and the
+span-unordered functions (ROADMAP.md §1 item 9).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from rucene_tpu_torch.ops import cuda_decode
+from rucene_tpu_torch.ops.decode import INVALID_DOC
+from rucene_tpu_torch.ops.topk import topk_score_doc
+from rucene_tpu_torch.util.packing import BLOCK_SIZE
+
+PMAX = 128  # positions per doc covered by a full-width plane (4 words)
+WORDS = PMAX // 32
+# occurrences decoded per (term, doc): a doc with more only sets the
+# overflow column
+FMAX = 64
+# work items per build step: bounds the [C, 128, fwin] int64 temporaries
+# (268 MB each at fwin = FMAX)
+BUILD_CHUNK = 4096
+
+_U32 = 0xFFFFFFFF
+_SIGN_OFF = 0x7FFFFFFFFFFFFFFF
+_M1 = 0x5555555555555555
+_M2 = 0x3333333333333333
+_M4 = 0x0F0F0F0F0F0F0F0F
+
+
+def work_lanes(dev, blk: torch.Tensor, count: torch.Tensor):
+    """Lanes of the blocks ``blk`` (int64[W]) with ``count`` (int[W], 0
+    for an inert item): (docs i32[W, 128] with INVALID_DOC past count,
+    freqs i64[W, 128] with 0 past count, valid bool[W, 128]). A decoded
+    segment gathers its planes' rows; a packed one decodes the blocks
+    through K1 (its twin for CPU tensors)."""
+    valid = torch.arange(BLOCK_SIZE, device=blk.device) < count[:, None]
+    if dev.docs_dec is not None:
+        docs = torch.where(valid, dev.docs_dec[blk], INVALID_DOC)
+        freqs = torch.where(valid, dev.freqs_dec[blk].long(), 0)
+        return docs, freqs, valid
+    docs, freqs, _norms = cuda_decode.decode_blocks(
+        dev.data, dev.blk_off[blk], dev.blk_doc_bits[blk], dev.blk_freq_bits[blk],
+        dev.blk_base[blk], count.to(torch.int32).contiguous(),
+    )
+    return docs, freqs.long(), valid
+
+
+def unpack_positions(positions: torch.Tensor, word_start, width, occ: torch.Tensor) -> torch.Tensor:
+    """Position deltas (int64, occ's shape) at occurrence indices ``occ``
+    of the streams starting at word ``word_start`` with ``width`` bits a
+    delta (ints or int64 tensors broadcasting against occ). positions:
+    int32 words holding u32 bits, read two at a time."""
+    bitpos = occ * width
+    widx = word_start + (bitpos >> 5)
+    lim = positions.shape[0] - 1
+    w0 = positions[widx.clamp(0, lim)].long() & _U32
+    w1 = positions[(widx + 1).clamp(0, lim)].long() & _U32
+    mask = (torch.ones_like(bitpos) << width) - 1
+    return (((w1 << 32) | w0) >> (bitpos & 31)) & mask
+
+
+def build_position_plane(
+    dev,
+    wi_block: torch.Tensor,  # int[W] the term's block ids
+    pos_width: int,  # packed position-delta width
+    pos_word_start: int,  # word offset of the term's stream
+    words: int = WORDS,
+    fwin: int = FMAX,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (plane i32[md, words] holding u32 bits, overflow bool[md]).
+
+    words: u32 words per doc (2 or 4; positions covered = 32 * words).
+    fwin: occurrences read per lane, FMAX or less when the caller knows
+    every freq of these blocks is at most fwin (the plane is the same).
+
+    One step per BUILD_CHUNK items: decode, unpack each lane's positions,
+    flag overflowing docs, then index_add_ each position's bit into the
+    flat plane (a drop bucket past the md docs takes the masked lanes)."""
+    md = dev.max_doc_padded
+    d = dev.device
+    pmax = 32 * words
+    plane = torch.zeros(md * words + words, dtype=torch.int32, device=d)
+    overflow = torch.zeros(md + 1, dtype=torch.bool, device=d)
+    fidx = torch.arange(fwin, dtype=torch.int64, device=d)
+    for s in range(0, wi_block.shape[0], BUILD_CHUNK):
+        blk = wi_block[s : s + BUILD_CHUNK].long()
+        docs, freqs, valid = work_lanes(dev, blk, dev.blk_count[blk])
+        pos_off = dev.blk_pos_base[blk].long()[:, None] + (freqs.cumsum(1) - freqs)
+        occ = pos_off[:, :, None] + fidx  # [C, 128, fwin]
+        pvalid = valid[:, :, None] & (fidx < freqs[:, :, None])
+        deltas = unpack_positions(dev.positions, pos_word_start, pos_width, occ)
+        pwin = torch.where(pvalid, deltas, 0).cumsum(-1)  # absolute positions
+        del occ, deltas
+        over_lane = valid & (
+            (freqs > FMAX) | (torch.where(pvalid, pwin, 0).amax(-1) >= pmax)
+        )
+        overflow[torch.where(over_lane, docs.long(), md)] = True  # md: drop bucket
+        on = pvalid & (pwin < pmax)
+        word_idx = torch.where(on, docs.long()[:, :, None] * words + (pwin >> 5), md * words)
+        bitval = torch.where(on, torch.ones_like(pwin) << (pwin & 31), 0).to(torch.int32)  # bit 31 wraps
+        plane.index_add_(0, word_idx.reshape(-1), bitval.reshape(-1))
+    return plane[: md * words].view(md, words), overflow[:md]
+
+
+def _shift_right(plane: torch.Tensor, j: int) -> torch.Tensor:
+    """Logical right shift of each doc's 32 * words-bit mask by j (< 32)
+    bits; plane: int32[..., words] holding u32 bits."""
+    if j == 0:
+        return plane
+    nxt = torch.cat([plane[..., 1:], torch.zeros_like(plane[..., :1])], dim=-1)
+    return ((plane >> j) & ((1 << (32 - j)) - 1)) | (nxt << (32 - j))
+
+
+def _popcount_words(x: torch.Tensor) -> torch.Tensor:
+    """Set bits per doc of int32[..., words] (words even) -> int64[...]:
+    SWAR on int64 lanes of two words, with the sign bit counted apart so
+    that every step stays non-negative."""
+    v = x.contiguous().view(torch.int64)
+    sign = (v < 0).long()
+    v = v & _SIGN_OFF
+    v = v - ((v >> 1) & _M1)
+    v = (v & _M2) + ((v >> 2) & _M2)
+    v = (v + (v >> 4)) & _M4  # a count per byte
+    v = v + (v >> 8)
+    v = v + (v >> 16)
+    v = v + (v >> 32)  # the low byte sums all eight
+    return ((v & 0x7F) + sign).sum(-1)
+
+
+def phrase_plane_search_many(
+    planes: tuple,  # flat, row-major: R rows x n_terms x i32[md, words]
+    overflows: tuple,  # R x n_terms x bool[md]
+    live: torch.Tensor,  # bool[md]
+    denoms: tuple,  # R x f32[md] per-row BM25 denominator planes
+    weights: torch.Tensor,  # f32[R]
+    k: int,
+    n_terms: int,
+) -> tuple:
+    """R same-arity exact phrase rows at once: each slot's planes are
+    stacked to [R, md, words] and the rows verify together. Rows with
+    ov_count > 0 are re-verified whole by the caller's scalar path.
+    Returns (scores f32[R, k], docs i32[R, k], hits i32[R], ov_count
+    i32[R])."""
+
+    def slot(src, j):
+        return torch.stack(src[j::n_terms])
+
+    p0 = slot(planes, 0)
+    acc = p0
+    ov_any = slot(overflows, 0)
+    present_all = (p0 != 0).any(-1) | ov_any
+    for j in range(1, n_terms):
+        pj = slot(planes, j)
+        oj = slot(overflows, j)
+        acc = acc & _shift_right(pj, j)
+        present_all = present_all & ((pj != 0).any(-1) | oj)
+        ov_any = ov_any | oj
+        del pj
+    pf = _popcount_words(acc).to(torch.float32)  # [R, md]
+    needs_host = present_all & ov_any & live
+    match = (pf > 0) & live & ~needs_host
+    score = weights[:, None] * pf / (pf + torch.stack(denoms))
+    top_scores, top_docs = topk_score_doc(torch.where(match, score, -torch.inf), k)
+    hits = match.sum(1).to(torch.int32)
+    ov_count = needs_host.sum(1).to(torch.int32)
+    return top_scores, top_docs, hits, ov_count

@@ -1,8 +1,15 @@
 """IndexSearcher: batched entry point over a point-in-time IndexReader
-(counterpart of rucene_tpu/search/searcher.py: the generic flat route and
-the single-term route).
+(counterpart of rucene_tpu/search/searcher.py: the generic flat route, the
+single-term route and the pure phrase routes).
 
-A batch of rows runs per leaf on the searcher's torch device, over
+A batch splits by row kind, as the reference's does: term and boolean
+rows go to the device path below, pure phrase rows (one PhraseQuery of 2-8
+terms, MUST or SHOULD, with no other clause) to search/phrase_path.py.
+Both are queued before either is collected, so the phrase work queues
+behind the term rows' kernels. Counters ``route.device`` and
+``route.phrase`` count the rows of each.
+
+Term and boolean rows run per leaf on the searcher's torch device, over
 decoded or packed segments alike; leaf hits merge by (score desc, global
 doc asc). Two routes (counters ``route.single`` / ``route.flat``, rows):
 - single: a batch of plain term rows (one positive-weight SHOULD clause)
@@ -17,8 +24,8 @@ searcher. Rows this slice does not serve raise NotImplementedError naming
 the ROADMAP.md item that ports them: there is no host fallback.
 
 Left out of the reference: the pair and tf-plane routes (row classes 3
-and 4), WAND pruning, timeouts, the combined multi-segment view,
-phrase/range/synonym paths.
+and 4), WAND pruning, timeouts, the combined multi-segment view, mixed
+phrase rows, span, range and synonym paths.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from rucene_tpu_torch.search.flat_tables import (
     make_flat_batch,
     prune_conjunctions,
 )
+from rucene_tpu_torch.search.phrase_path import PhrasePathMixin, phrase_row_reason
 from rucene_tpu_torch.search.query import Occur, Query, RewrittenQuery, _NeedsHostEval
 from rucene_tpu_torch.search.similarity import BM25Similarity, CollectionStats
 from rucene_tpu_torch.util.metrics import METRICS
@@ -98,7 +106,7 @@ def unported_reason(rq: RewrittenQuery | None) -> str | None:
     if rq is None:
         return "needs host evaluation, which is not ported (ROADMAP.md §1 item 9)"
     if rq.phrases:
-        return "phrase queries are not ported (ROADMAP.md §1 item 8)"
+        return phrase_row_reason(rq)
     if rq.ranges:
         return "range, exists and prefix filters are not ported (ROADMAP.md §1 item 9)"
     if rq.groups:
@@ -113,7 +121,7 @@ def unported_reason(rq: RewrittenQuery | None) -> str | None:
     return None
 
 
-class IndexSearcher:
+class IndexSearcher(PhrasePathMixin):
     def __init__(
         self,
         reader: IndexReader,
@@ -157,15 +165,32 @@ class IndexSearcher:
             why = unported_reason(p.rq)
             if why is not None:
                 raise NotImplementedError(f"query {i} ({type(p.q).__name__}): {why}")
-        METRICS.incr("route.device", len(queries))
-        if not queries:
-            return lambda: []
-        finish = self._search_device([p.rq for p in plans], k, plans)
+        is_phrase = [self._phrase_device_eligible(p.rq) for p in plans]
+        phrase_idx = [i for i, ph in enumerate(is_phrase) if ph]
+        device_idx = [i for i, ph in enumerate(is_phrase) if not ph]
+        METRICS.incr("route.device", len(device_idx))
+        METRICS.incr("route.phrase", len(phrase_idx))
+        # queue every device path before collecting any: the phrase work
+        # queues behind the term rows' kernels, and its scalar rows run on
+        # the host while both are in flight
+        device_finish = phrase_finish = None
+        if device_idx:
+            device_finish = self._search_device(
+                [plans[i].rq for i in device_idx], k, [plans[i] for i in device_idx]
+            )
+        if phrase_idx:
+            phrase_finish = self._search_phrases_device(
+                [plans[i].rq for i in phrase_idx], k, _defer=True
+            )
 
         def collect() -> list[TopDocs]:
-            out = finish()
+            out: list[TopDocs | None] = [None] * len(queries)
+            for idx, finish in ((device_idx, device_finish), (phrase_idx, phrase_finish)):
+                if finish is not None:
+                    for i, td in zip(idx, finish()):
+                        out[i] = td
             METRICS.observe("search.batch", time.perf_counter() - t_start)
-            return out
+            return out  # type: ignore[return-value]
 
         return collect
 
@@ -194,12 +219,14 @@ class IndexSearcher:
             terms = plan.stats_terms if plan is not None else None
             if terms is None:
                 terms = [(c.term.field, c.term.text) for c in rq.clauses]
+                terms += [(f, t) for f, ph_terms, _b, _s in rq.phrases for t in ph_terms if t is not None]
                 if plan is not None:
                     plan.stats_terms = terms
             for key in terms:
                 fields.add(key[0])
                 if key not in doc_freqs:
                     doc_freqs[key] = self.reader.doc_freq(*key)  # memoized
+            fields.update(f for f, _t, _b, _s in rq.phrases)
         stats = {f: self.collection_stats(f) for f in fields}
         return doc_freqs, stats
 

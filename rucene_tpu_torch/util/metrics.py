@@ -2,8 +2,14 @@
 without its profiler hooks).
 
 Counters in use:
-- ``route.device``: query rows served on the device;
-- ``route.single`` / ``route.flat``: rows per route (search/searcher.py);
+- ``route.device`` / ``route.phrase``: term and boolean rows, and pure
+  phrase rows (search/searcher.py);
+- ``route.single`` / ``route.flat``: term and boolean rows per route;
+- ``search.phrase_device`` / ``search.phrase_plane`` /
+  ``search.phrase_scalar_route`` / ``search.phrase_host_fallback``: phrase
+  rows per route, ``search.phrase_plane_build`` / ``_denied`` (planes
+  built, fetches refused), ``search.phrase_pruned_blocks``
+  (search/phrase_path.py);
 - ``search.queries``, ``search.flat_lanes``, ``search.conj_pruned_blocks``;
 - ``search.decode_dedup_items``: work items whose block decode was shared;
 - ``search.strategy.dense`` / ``search.strategy.candidate``: executor calls

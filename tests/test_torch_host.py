@@ -9,7 +9,8 @@ the reference's modules.
     prefix is mapped, apart from the definitions its docstring lists under
     "Port changes". The index format and the query semantics cannot drift
     apart unnoticed.
-(c) chip_smoke.py's corpus and query builders reproduce bench.py's.
+(c) chip_smoke.py's corpus, bigram sampler and query builder reproduce
+    bench.py's, phrase rows included.
 """
 
 import ast
@@ -37,6 +38,7 @@ COPIED = [
     "native/__init__.py",
     "ops/combine_tables.py",
     "search/query.py",
+    "search/scalar_engine.py",
     "search/similarity.py",
     "util/__init__.py",
     "util/bkd.py",
@@ -74,7 +76,9 @@ q = T.BooleanQuery()
 q.must(T.TermQuery(T.Term("body", "alpha")))
 q.should(T.TermQuery(T.Term("body", "beta")))
 q.must_not(T.TermQuery(T.Term("body", "eta")))
-hits = searcher.search_batch([T.TermQuery(T.Term("body", "gamma")), q], k=10)
+hits = searcher.search_batch(
+    [T.TermQuery(T.Term("body", "gamma")), q, T.PhraseQuery("body", ["alpha", "beta"])], k=10
+)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rucene_tpu"))
 print(json.dumps({
     "loaded": loaded,
@@ -92,8 +96,9 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    (n1, top1), (n2, top2) = out["hits"]
-    assert n1 > 0 and n2 > 0
+    (n1, top1), (n2, top2), (n3, top3) = out["hits"]
+    assert n1 > 0 and n2 > 0 and n3 > 0
+    assert len(top3) == min(10, n3)
     assert len(top1) == 10 and len(top2) == min(10, n2)
     assert all(a[1] >= b[1] for a, b in zip(top2, top2[1:]))
 
@@ -163,9 +168,19 @@ def test_smoke_workload_matches_bench():
     assert texts == b_texts
     assert np.array_equal(probs, b_probs) and list(vocab) == list(b_vocab)
 
-    def clauses(q):
-        return [(int(c.occur), c.term.field, c.term.text) for c in q.rewrite().clauses]
+    def rows(q):
+        rq = q.rewrite()
+        return (
+            type(q).__name__,
+            [(int(c.occur), c.term.field, c.term.text) for c in rq.clauses],
+            [(f, list(ts), b, s) for f, ts, b, s in rq.phrases],
+        )
 
-    mine = chip_smoke.build_queries(64, vocab, probs)
-    ref = bench.build_queries(64, b_vocab, b_probs, phrase_texts=None)
-    assert [clauses(q) for q in mine] == [clauses(q) for q in ref]
+    assert chip_smoke.sample_bigrams(texts, 40) == bench.sample_bigrams(b_texts, 40)
+    assert chip_smoke.sample_bigrams(texts, 5, seed=3) == bench.sample_bigrams(b_texts, 5, seed=3)
+    for phrase_texts in (None, texts):
+        mine = chip_smoke.build_queries(64, vocab, probs, phrase_texts=phrase_texts)
+        ref = bench.build_queries(64, b_vocab, b_probs, phrase_texts=phrase_texts)
+        assert [rows(q) for q in mine] == [rows(q) for q in ref]
+    phrase_at = [i for i, q in enumerate(ref) if type(q).__name__ == "PhraseQuery"]
+    assert phrase_at == list(range(7, 64, 8))

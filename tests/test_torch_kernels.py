@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain PyTorch twin,
-and the term/boolean slice served on the card against the same slice on
-the CPU (whose twins tests/test_torch_search.py holds against rucene_tpu).
+and the term/boolean slice and the phrase routes served on the card
+against the same rows on the CPU (whose twins tests/test_torch_search.py
+and tests/test_torch_phrase_path.py hold against rucene_tpu).
 
 Marked ``gpu``: each test skips without a CUDA device (a CUDA kernel has no
 CPU mode). The module imports no jax, so it also runs on a card host
@@ -25,6 +26,7 @@ from rucene_tpu_torch.ops.cuda_decode import (
     decode_score_blocks,
     decode_score_blocks_plain,
 )
+from rucene_tpu_torch.search import phrase_path
 from rucene_tpu_torch.search import searcher as searcher_mod
 from rucene_tpu_torch.search.flat_tables import build_combine_batch
 from rucene_tpu_torch.util.metrics import METRICS
@@ -247,3 +249,57 @@ def test_routes_on_card_match_cpu(card, decoded, deletes, monkeypatch):
     k2 = counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
     assert (k2 > 0) == (decoded == "0")
     assert all((lf.device.docs_dec is None) == (decoded == "0") for lf in s.reader.leaves)
+
+
+_PHRASE_PINS = {
+    "candidate": {"PHRASE_SCALAR_MAX_DOCS": 0},
+    "sloppy": {"PHRASE_SCALAR_MAX_DOCS": 0},
+    "planes": {"PHRASE_SCALAR_MAX_DOCS": 0, "PHRASE_PLANE_MIN_DOCS": 1,
+               "PHRASE_PLANE_ITEM_MIN": 1},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(_PHRASE_PINS))
+@pytest.mark.parametrize("decoded", ["0", "1"])
+def test_phrase_routes_on_card_match_cpu(card, route, decoded, monkeypatch):
+    """Phrase rows (2 and 3 terms, exact or sloppy, one with an absent
+    term) beside term rows, over two segments, one with deletes, on each
+    device phrase route: the card's TopDocs match the CPU's, packed leaves
+    decode the phrase work through the decode kernel, and no plain twin
+    runs on the card."""
+    monkeypatch.setenv("RUCENE_DECODED", decoded)
+    segs = [port_segment("ef_heavy"), port_segment("plain")]
+    live = np.random.default_rng(3).random(segs[1].max_doc) > 0.3
+    rng = np.random.default_rng(12)
+    vocab = [f"v{i}" for i in range(25)] + ["efhot"]
+    slop = 3 if route == "sloppy" else 0
+    rows = [T.PhraseQuery("body", [str(t) for t in rng.choice(vocab, 2 + i % 2)], slop=slop)
+            for i in range(40)]
+    rows += [T.PhraseQuery("body", ["v1", "absent"], slop=slop),
+             T.TermQuery(T.Term("body", "v3")), T.TermQuery(T.Term("body", "u17"))]
+
+    def searcher(device):
+        s = T.IndexSearcher(IndexReader([
+            SegmentSnapshot("a", segs[0]), SegmentSnapshot("b", segs[1], live=live),
+        ]), device=device)
+        for name, v in _PHRASE_PINS[route].items():
+            setattr(s, name, v)
+        return s
+
+    phrase_path._PLANE_CACHE.clear()
+    want = searcher("cpu").search_batch(rows, k=1000)
+    monkeypatch.setattr(cuda_decode, "decode_blocks_plain", _refuse)
+    monkeypatch.setattr(cuda_decode, "decode_score_blocks_plain", _refuse)
+    s = searcher(card)
+    for lf in s.reader.leaves:
+        lf.device  # the residency's own decode launches are not counted
+    METRICS.reset()
+    got = s.search_batch(rows, k=1000)
+    counters = METRICS.snapshot()["counters"]
+    assert_batches_strict(got, want)
+    assert sum(td.total_hits for td in want) > 0
+    assert counters.get("route.phrase", 0) == 41
+    route_counter = "search.phrase_plane" if route == "planes" else "search.phrase_device"
+    assert counters.get(route_counter, 0) > 0
+    assert (counters.get(cuda_decode.LAUNCH_COUNTER, 0) > 0) == (decoded == "0")

@@ -148,8 +148,11 @@ def _unported():
     inner.should(T.TermQuery(T.Term("body", "dog")))
     nested.must(inner)
     nested.must(T.TermQuery(T.Term("body", "the")))
+    mixed_phrase = T.BooleanQuery()
+    mixed_phrase.must(T.PhraseQuery("body", ["quick", "fox"]))
+    mixed_phrase.should(T.TermQuery(T.Term("body", "dog")))
     return {
-        "phrase": T.PhraseQuery("body", ["quick", "fox"]),
+        "mixed_phrase": mixed_phrase,
         "range": T.PointRangeQuery("n", 1, 5),
         "exists": T.ExistsQuery("body"),
         "match_all": T.MatchAllDocsQuery(),

@@ -1,22 +1,28 @@
 """Same-card A/B measurement of the port's kernels and serving, one tree at
 a time (not a pytest module).
 
-    python3 tests/torch_perf_ab.py --root DIR --label NAME
+    python3 tests/torch_perf_ab.py --root DIR --label NAME [--phrases]
 
 imports ``rucene_tpu_torch`` from DIR (a checkout of the port) and the
 corpus, query, replay and timing helpers from this checkout's
 ``chip_smoke.py``, so two trees are measured by one harness. On the 1M-doc bench corpus (``BENCH_DOCS`` overrides) it measures:
   - QPS of the bench mix from a decoded and from a packed reader (the
     smoke's ``serve``: pipelined, three batches deep);
-  - kernel time per pass and the device busy share (the union of kernel
-    intervals over the wall time) under ``torch.profiler``, over three
-    pipelined passes of each reader, and each reader's peak device memory;
+  - kernel time per pass, the device busy share (the union of kernel
+    intervals over the wall time) and the ten kernels that took the most
+    device time under ``torch.profiler``, over three pipelined passes of
+    each reader, and each reader's peak device memory;
   - K1 over every block and K2 on the first batch's single-term rows,
     timed like the smoke (cold L2, host launch time excluded), and the
     executor's dense combine step (``_combine_dense``: K3 and what feeds
     it) on the head-band pair batch, timed the same way.
-It prints one JSON line. Run it for the parent and the change in turns
-(parent, change, change, parent) inside one chip call to compare them.
+Without ``--phrases`` the mix has no phrase rows (AND rows take their
+place), so a tree that serves no phrases is measured on the same rows as
+one that does. ``--phrases`` serves the bench's whole mix (bigrams from the
+first 5,000 docs) and prewarms each reader's phrase planes first, after
+dropping the other reader's; the tree must serve phrases. It prints one
+JSON line. Run it for the parent and the change in turns (parent, change,
+change, parent) inside one chip call to compare them.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ def _load_smoke():
     return mod
 
 
-def _profile_passes(torch, smoke, searcher, queries, passes: int = 3):
-    """(kernel ms per pass, device busy share) over pipelined passes."""
+def _profile_passes(torch, smoke, searcher, queries, passes: int = 3, top: int = 10):
+    """(kernel ms per pass, device busy share, the ``top`` kernels by device
+    time as [name, ms per pass]) over pipelined passes."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -54,23 +61,27 @@ def _profile_passes(torch, smoke, searcher, queries, passes: int = 3):
             pending.pop(0)()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted(
-        (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     total = sum(b - a for a, b in spans)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return total / 1e3 / passes, busy / wall_us
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return total / 1e3 / passes, busy / wall_us, [[n, us / 1e3 / passes] for n, us in ranked]
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
     ap.add_argument("--label", required=True)
+    ap.add_argument("--phrases", action="store_true",
+                    help="serve the whole mix, phrase rows included (the tree must serve them)")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     smoke = _load_smoke()
@@ -89,11 +100,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     out = {"label": args.label, "package": os.path.dirname(rucene_tpu_torch.__file__),
-           "card": smoke.card_line()}
+           "card": smoke.card_line(), "phrases": args.phrases}
     cuda_build.kernels()
     n_docs = int(os.environ.get("BENCH_DOCS", 1_000_000))
     texts, vocab, probs = smoke.build_corpus(n_docs)
-    queries = smoke.build_queries(smoke.N_QUERIES, vocab, probs)
+    queries = smoke.build_queries(
+        smoke.N_QUERIES, vocab, probs, phrase_texts=texts[:5000] if args.phrases else None
+    )
     packed = smoke.pack_corpus(texts)
     del texts
 
@@ -105,12 +118,21 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         s = reader()
         s.reader.leaves[0].device  # build the segment's device form now
+        if args.phrases:
+            from rucene_tpu_torch.search import phrase_path
+
+            phrase_path._PLANE_CACHE.clear()  # the other reader's planes
+            t = time.perf_counter()
+            out[f"{name}_prewarm_planes"] = s.prewarm_phrase_planes()
+            torch.cuda.synchronize()
+            out[f"{name}_prewarm_s"] = time.perf_counter() - t
         for i in range(0, len(queries), smoke.BATCH):  # warm pass
             s.search_batch(queries[i:i + smoke.BATCH], k=smoke.K)
         qps, _ = smoke.serve(s, queries)
-        ms, busy = _profile_passes(torch, smoke, s, queries)
+        ms, busy, top = _profile_passes(torch, smoke, s, queries)
         out[name] = {"qps": qps, "kernel_ms_per_pass": ms, "busy_share": busy,
-                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "top_kernels_ms_per_pass": top}
         if name == "decoded":
             searcher = s
         else:
