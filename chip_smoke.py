@@ -10,46 +10,61 @@ Builds the CUDA kernels and the native library from this checkout, then:
      draws them) and the same mix without them, packs the corpus and opens
      it with the port's IndexReader;
   3. builds the decoded residency through the decode kernel and holds it
-     against the plain twin on the CPU, every block bit for bit; then
-     prewarms the resident phrase planes (searcher.prewarm_phrase_planes,
-     as bench.py does) and logs their count, seconds and bytes;
+     against the plain twin on the CPU, every block bit for bit; logs the
+     dense tf planes the residency build scattered (count, bytes, df_min)
+     and rebuilds them once, timed, holding the rebuild equal to them;
+     then prewarms the resident phrase planes
+     (searcher.prewarm_phrase_planes, as bench.py does) and logs their
+     count, seconds and bytes;
   4. serves the bench's whole mix (512 queries, batch 256, k=100, 64
      phrase rows) through search_batch_async: a warm pass, then timed
      pipelined passes; then the mix without phrases (qps_no_phrase, the
      figure earlier runs recorded). Every phrase row must take the phrase
      route, both device phrase routes (candidate tables and position
      planes) must be taken, and at 1M docs no phrase row may go to the
-     scalar engine or the host;
-  5. serves 32 two-term rows over head-band terms through the same
-     search_batch (dense regime, no forced strategy), so the combine
-     kernel runs on the main path even if the mix takes only the
-     candidate branch;
+     scalar engine or the host. Every two-term row must take the pair
+     or the tf-plane route, and at 1M docs both must be taken; pair rows
+     rerun on the flat executor (probe-slot overflow) are logged;
+  5. measures the peak device memory and time of the first batch's plane
+     rows and pair rows, each served alone (the plane executor's peak per
+     (row, doc) sizes its row chunks, plane_path.plane_row_chunk);
   6. serves 16 of the mix's queries, two of each of its 8 kinds
      (single-term, OR, AND, phrase), on the CPU and compares them hit for
-     hit;
-  7. checks each kernel's launch count from steps 3-5 (and that the mix's
-     single-term rows took the single route), then replays one call of
-     each kernel from that path (the residency decode; the head-band
-     batch's combine) against its plain PyTorch version on the card, and
-     times both, and the combine's library yardstick (zeroed planes plus
-     index_add_ of the items' valid lanes, which the port never calls);
+     hit, logging each row's route on the card;
+  7. checks each kernel's launch count on its path (the decode kernel in
+     step 3, and that the mix's single-term rows took the single route),
+     then replays the residency decode against its plain PyTorch version
+     on the card, and times both;
   8. packed serving: a second reader over the same segment, built with
-     RUCENE_DECODED=0 (no decoded planes), drops the decoded reader's
-     planes, prewarms its own and serves the whole mix the same way with
-     the plain decode twins disabled: term and boolean rows decode through
-     the scoring decode kernel, phrase rows and plane builds through the
-     decode kernel. Launches and routes are counted on this path alone,
-     and the 16 sampled TopDocs must equal the decoded run's bit for bit;
-  9. replays the scoring decode of the first packed batch's single-term
-     rows (their distinct blocks, fids and cache) against its plain
-     version on the card: docs, freqs and cval bit-equal; times both.
+     RUCENE_DECODED=0 (no decoded planes, so no tf planes and no pair
+     route: its two-term rows take the flat executor, as the reference's
+     packed reader's do), drops the decoded reader's phrase planes,
+     prewarms its own and serves the whole mix the same way with the
+     plain decode twins disabled: term and boolean rows decode through the
+     scoring decode kernel, phrase rows and plane builds through the
+     decode kernel. Then it serves 32 two-term rows over head-band terms
+     through the same search_batch (dense regime, no forced strategy), so
+     the combine kernel runs on this serving path even if the mix takes
+     only the candidate branch: the decoded reader sends no row to the
+     flat executor's dense branch any more (its head-band rows are plane
+     rows), and the packed reader is the serving path that keeps the
+     combine. Launches and routes are counted on this path alone, and the
+     16 sampled TopDocs must equal the decoded run's bit for bit (pair and
+     plane rows against the flat executor's);
+  9. replays the head-band batch's combine call on the packed reader
+     against its plain version, times both, and the combine's library
+     yardstick (zeroed planes plus index_add_ of the items' valid lanes,
+     which the port never calls); then the scoring decode of the first
+     packed batch's single-term rows against its plain version: docs,
+     freqs and cval bit-equal; times both.
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
 L2), enqueued behind a sleep so that host launch time is not counted
 (cuda_ms). Any failure raises. The last three lines are the kernels'
-JSON record (with qps, packed_qps and qps_no_phrase), the card's name and
-power limit, and the device line.
+JSON record (with qps, packed_qps, qps_no_phrase, tf_plane_mib,
+pair_rows and plane_rows), the card's name and power limit, and the
+device line.
 """
 
 from __future__ import annotations
@@ -268,17 +283,43 @@ def phrase_gates(counters, n_rows: int, n_phrase: int, n_queries: int, full: boo
             raise AssertionError(f"{where}: {counters[name]} phrase rows took {name}")
 
 
+def route_gates(counters, n_two_term: int, n_queries: int, split: bool, where: str):
+    """The two-term gates over one serving stage's counter deltas: on a
+    corpus that splits batches by row class (2^19 docs or more, where the
+    tf planes are on as well) every two-term row took the pair or the
+    tf-plane route, and both were taken. Returns (pair rows, plane
+    rows)."""
+    rows = counters.get("route.device", 0) + counters.get("route.phrase", 0)
+    passes = rows // n_queries
+    pair = counters.get("route.pair_rows", 0)
+    plane = counters.get("route.plane_rows", 0)
+    log(f"{where} two-term rows: route.pair_rows={pair} route.plane_rows={plane} "
+        f"search.pair_overflow_rows={counters.get('search.pair_overflow_rows', 0)} "
+        f"over {passes} passes")
+    if not split:
+        return pair, plane
+    if pair + plane != passes * n_two_term:
+        raise AssertionError(f"{where}: {pair} pair + {plane} plane rows over {passes} passes, "
+                             f"expected {n_two_term} two-term rows in every pass")
+    if pair <= 0 or plane <= 0:
+        raise AssertionError(f"{where}: the pair route ({pair}) or the plane route ({plane}) "
+                             "was never taken")
+    return pair, plane
+
+
 def counter_delta(after: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items()}
 
 
-def serve_packed(packed, queries, dev, card, split, n_phrase, full):
+def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
     """Phase 8: a reader over ``packed`` whose segment is built with
     RUCENE_DECODED=0, serving the mix with the plain decode twins replaced
     by a raise, after dropping the decoded reader's position planes and
-    prewarming its own (through K1). Counts are reset just before and read
-    just after. Returns (searcher, qps, last pass's TopDocs, K1 launches,
-    K2 launches)."""
+    prewarming its own (through K1), then the head-band rows ``dense_q``
+    (through K3). Counts are reset just before and read just after.
+    Returns (searcher, qps, last pass's TopDocs, K1 launches, K2
+    launches, K3 launches)."""
+    from rucene_tpu_torch.ops import cuda_combine
     from rucene_tpu_torch import IndexSearcher
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_decode
@@ -315,9 +356,20 @@ def serve_packed(packed, queries, dev, card, split, n_phrase, full):
         for i in range(0, len(queries), BATCH):  # warm pass
             searcher.search_batch(queries[i : i + BATCH], k=K)
         qps, results = serve(searcher, queries)
+        mix_counters = METRICS.snapshot()["counters"]
+        searcher.search_batch(dense_q, k=K)
+        torch.cuda.synchronize()
     finally:
         cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain = twins
     counters = METRICS.snapshot()["counters"]  # the packed path ends here
+    k3 = counters.get(cuda_combine.LAUNCH_COUNTER, 0)
+    mix_k3 = mix_counters.get(cuda_combine.LAUNCH_COUNTER, 0)
+    log(f"combine launches on the packed path: {mix_k3} in the mix, "
+        f"{k3 - mix_k3} for the head-band rows")
+    if k3 <= 0:
+        raise AssertionError("the combine kernel never launched on the packed path")
+    if counters.get("route.pair_rows", 0) or counters.get("route.plane_rows", 0):
+        raise AssertionError("the packed reader took the pair or the tf-plane route")
     k1 = counters.get(cuda_decode.LAUNCH_COUNTER, 0)
     k1_serving = k1 - before.get(cuda_decode.LAUNCH_COUNTER, 0)
     k2 = counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
@@ -333,9 +385,9 @@ def serve_packed(packed, queries, dev, card, split, n_phrase, full):
         raise AssertionError("the packed reader's phrase rows never launched the decode kernel")
     log(f"decode kernel launches on the packed path: {k1} ({k1 - k1_serving} in the prewarm, "
         f"{k1_serving} serving phrase rows)")
-    phrase_gates(counter_delta(counters, before), len(queries), n_phrase, len(queries), full,
-                 "packed mix")
-    return searcher, qps, results, k1, k2
+    phrase_gates(counter_delta(mix_counters, before), len(queries), n_phrase, len(queries),
+                 full, "packed mix")
+    return searcher, qps, results, k1, k2, k3
 
 
 def single_k2_call(searcher, batch):
@@ -375,7 +427,7 @@ def single_k2_call(searcher, batch):
 
 def head_band_combine_call(searcher, dense_q):
     """The combine call the searcher makes for the head-band pair rows
-    ``dense_q`` on its decoded leaf: (FlatQueryBatch, CombineBatch,
+    ``dense_q`` on its (packed) leaf: (FlatQueryBatch, CombineBatch,
     target i32[W,128], sc f32[W,128], valid bool[W,128]), the lanes as
     decode_score_lanes returns them."""
     from rucene_tpu_torch.search import executor, flat_tables
@@ -394,13 +446,74 @@ def head_band_combine_call(searcher, dense_q):
     if not executor.dense_strategy(b, gdev.max_doc_padded, len(work[0])):
         raise AssertionError("the head-band pair batch is not in the dense regime")
     cache = flat_tables.build_leaf_cache(leaf, searcher.similarity, stats)
-    q = flat_tables.make_flat_batch(work, n_req, min_sh, cache, gdev)
+    q = flat_tables.make_flat_batch(work, n_req, min_sh, cache, gdev, dedupe=True)
     cb = flat_tables.build_combine_batch(
         work, b, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc, gdev.max_doc_padded,
         leaf.torch_device,
     )[0]
     target, sc, valid = executor.decode_score_lanes(gdev, q)
     return q, cb, target, sc, valid
+
+
+def is_two_term(q) -> bool:
+    """A BooleanQuery of two term clauses (the mix's OR and AND rows)."""
+    return type(q).__name__ == "BooleanQuery" and len(q.rewrite().clauses) == 2
+
+
+def row_route(searcher, q) -> str:
+    """The route counters one row moves when served alone (a lone row
+    takes its row class's route, as it does in the split batch)."""
+    from rucene_tpu_torch.util.metrics import METRICS
+
+    before = METRICS.snapshot()["counters"]
+    searcher.search_batch([q], k=K)
+    moved = counter_delta(METRICS.snapshot()["counters"], before)
+    names = ("route.single", "route.plane_rows", "route.pair_rows", "route.flat",
+             "search.phrase_device", "search.phrase_plane", "search.phrase_scalar_route")
+    return "+".join(n.split(".", 1)[1] for n in names if moved.get(n, 0)) or "none"
+
+
+def route_rows(searcher, batch) -> dict:
+    """The rows of ``batch`` each of the tf-plane and pair routes takes
+    (the searcher's own row flags, as its split reads them)."""
+    from rucene_tpu_torch.search import flat_tables
+
+    plans = [searcher._plan_for(q) for q in batch]
+    idx = [i for i, p in enumerate(plans) if not searcher._phrase_device_eligible(p.rq)]
+    rqs = [plans[i].rq for i in idx]
+    doc_freqs, stats = searcher._gather_stats(rqs, [plans[i] for i in idx])
+    t = max(len(rq.all_slots()) for rq in rqs)
+    weight, _o, _n, _m = flat_tables.build_clause_tables(
+        rqs, searcher.similarity, doc_freqs, stats, len(rqs), t, plans=[plans[i] for i in idx]
+    )
+    single = [searcher._pure_row(rq, weight[j]) and len(rq.clauses) == 1 for j, rq in enumerate(rqs)]
+    plane = searcher._plane_rows(rqs, [plans[i] for i in idx], single)
+    pair = searcher._pair_rows(rqs, weight)
+    return {
+        "plane": [batch[i] for j, i in enumerate(idx) if plane[j]],
+        "pair": [batch[i] for j, i in enumerate(idx) if pair[j] and not plane[j]],
+    }
+
+
+def route_peak(searcher, rows):
+    """(peak bytes above what was allocated before, ms between events,
+    route counters moved) of one search_batch of ``rows``."""
+    from rucene_tpu_torch.util.metrics import METRICS
+
+    searcher.search_batch(rows, k=K)  # warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = METRICS.snapshot()["counters"]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    searcher.search_batch(rows, k=K)
+    end.record()
+    torch.cuda.synchronize()
+    moved = counter_delta(METRICS.snapshot()["counters"], before)
+    return (torch.cuda.max_memory_allocated() - base, start.elapsed_time(end),
+            {k: v for k, v in moved.items() if k.startswith("route.") and v})
 
 
 def card_line() -> str:
@@ -415,8 +528,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from dataclasses import replace
+
     from rucene_tpu_torch import IndexSearcher
-    from rucene_tpu_torch.codec.device import build_device_segment
+    from rucene_tpu_torch.codec.device import (
+        add_tf_planes,
+        build_device_segment,
+        device_bytes,
+        plane_policy,
+    )
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
     from rucene_tpu_torch.search import phrase_path
@@ -490,6 +610,21 @@ def main() -> int:
             raise AssertionError(f"decode kernel differs from its twin at blocks {bad}")
         k1_err = max(k1_err, int((got.long() - ref.long()).abs().max()))
     log(f"decode kernel bit-equal to the twin over all {packed.num_blocks} blocks")
+    tf_planes = gdev.tf_planes
+    if tf_planes is None:
+        raise AssertionError("the decoded residency holds no tf planes")
+    tf_plane_mib = tf_planes.numel() / 2**20
+    _budget, df_min = plane_policy(gdev.max_doc_padded, device_bytes(gdev) - tf_planes.numel())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rebuilt, slots = add_tf_planes(replace(gdev, tf_planes=None), packed)
+    torch.cuda.synchronize()
+    tf_plane_s = time.perf_counter() - t
+    if slots != leaf.plane_slots or not torch.equal(rebuilt.tf_planes, tf_planes):
+        raise AssertionError("a rebuild of the tf planes differs from the residency's")
+    del rebuilt
+    log(f"tf planes: {tf_planes.shape[0]} terms with df >= {df_min}, {tf_plane_mib:.0f} MiB, "
+        f"built in {tf_plane_s:.3f}s (a timed rebuild, equal to the residency's)")
     t = time.perf_counter()
     n_planes = searcher.prewarm_phrase_planes()
     torch.cuda.synchronize()
@@ -511,41 +646,44 @@ def main() -> int:
     mix_peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"bench mix: {qps:.1f} QPS ({N_QUERIES} queries, {n_phrase} phrase rows, batch {BATCH}, "
         f"k={K}) on {card}; peak device memory {mix_peak:.2f} GiB")
-    phrase_gates(counter_delta(METRICS.snapshot()["counters"], before), N_QUERIES, n_phrase,
-                 N_QUERIES, full, "decoded mix")
+    mix_counters = counter_delta(METRICS.snapshot()["counters"], before)
+    phrase_gates(mix_counters, N_QUERIES, n_phrase, N_QUERIES, full, "decoded mix")
+    split = n_docs >= searcher_mod.SPLIT_MIN_DOCS  # else mixed batches stay whole
+    two_term = sum(is_two_term(q) for q in queries)
+    pair_rows, plane_rows = route_gates(mix_counters, two_term, N_QUERIES, split, "decoded mix")
+    before = METRICS.snapshot()["counters"]
     for i in range(0, len(queries_no_phrase), BATCH):  # warm pass
         searcher.search_batch(queries_no_phrase[i : i + BATCH], k=K)
     qps_no_phrase, _ = serve(searcher, queries_no_phrase)
     log(f"bench mix without phrases: {qps_no_phrase:.1f} QPS on {card}")
-    counters = METRICS.snapshot()["counters"]
-
-    # 5. the combine kernel on the main path: the mix may take only the
-    # candidate branch, so a batch of head-band pair rows (dense regime,
-    # no forced strategy) always follows; step 7 replays its combine call
-    mix_k3 = counters.get(cuda_combine.LAUNCH_COUNTER, 0)
-    dense_q = head_pair_queries(vocab)
-    searcher.search_batch(dense_q, k=K)
-    torch.cuda.synchronize()
     counters = METRICS.snapshot()["counters"]  # the main path ends here
-    log(f"combine launches: {mix_k3} in the mix, "
-        f"{counters.get(cuda_combine.LAUNCH_COUNTER, 0) - mix_k3} for the head-band rows")
-    launches = {
-        "decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0),
-        "combine_lanes": counters.get(cuda_combine.LAUNCH_COUNTER, 0),
-    }
-    log(f"kernel launches on the main path: {launches}")
+    route_gates(counter_delta(counters, before), sum(is_two_term(q) for q in queries_no_phrase),
+                N_QUERIES, split, "decoded mix without phrases")
+    launches = {"decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0)}
+    log(f"kernel launches on the decoded path: {launches}")
     log("routes: " + " ".join(
         f"{k}={v}" for k, v in sorted(counters.items()) if not k.startswith("kernel.")
     ))
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
-    split = n_docs >= searcher_mod.SPLIT_MIN_DOCS  # else mixed batches stay whole
+    if launches["decode_blocks"] <= 0:
+        raise AssertionError("kernel decode_blocks never launched on the decoded path")
     if split and counters.get("route.single", 0) <= 0:
         raise AssertionError("no mix row took the single-term route on the decoded reader")
 
+    # 5. peak memory and time of the first batch's plane rows and pair rows
+    batch = queries[:BATCH]
+    for name, rows in route_rows(searcher, batch).items():
+        if not rows:
+            log(f"first batch: no {name} rows")
+            continue
+        peak, ms, moved = route_peak(searcher, rows)
+        per = peak / (len(rows) * gdev.max_doc_padded)
+        log(f"first batch's {len(rows)} {name} rows served alone: peak {peak / 2**20:.1f} MiB above "
+            f"the resident set ({per:.1f} bytes a (row, doc)), {ms:.3f} ms between events; "
+            f"routes {moved}")
+
     # 6. 16 queries on the CPU, hit for hit: two of each of the mix's 8 kinds
     sample_idx = [i for kind in range(8) for i in (kind, kind + 8 * 31)]
+    routes = {i: row_route(searcher, queries[i]) for i in sample_idx}
     cpu_reader = IndexReader([SegmentSnapshot("bench", packed)])
     cpu_searcher = IndexSearcher(cpu_reader, device="cpu")
     t = time.perf_counter()
@@ -553,10 +691,11 @@ def main() -> int:
     for i, want_td in zip(sample_idx, cpu_hits):
         assert_topdocs_strict(mix_results[i], want_td)
     log(f"16 queries ({', '.join(sorted({type(queries[i]).__name__ for i in sample_idx}))}) "
-        f"match the CPU run hit for hit ({time.perf_counter() - t:.1f}s)")
+        f"match the CPU run hit for hit ({time.perf_counter() - t:.1f}s); routes on the card: "
+        + ", ".join(f"{i}:{routes[i]}" for i in sample_idx))
     del cpu_reader, cpu_searcher
 
-    # 7. each kernel against its plain version on the card, and times
+    # 7. the decode kernel against its plain version on the card, and times
     seg = build_device_segment(packed, dev)
     tables = (seg.data, seg.blk_off, seg.blk_doc_bits, seg.blk_freq_bits, seg.blk_base, seg.blk_count)
     fdt = gdev.freqs_dec.dtype
@@ -570,10 +709,25 @@ def main() -> int:
         f"must move {k1_bytes} bytes, bound {bound_ms(k1_bytes):.4f} ms")
     del seg, tables
 
-    _q, cb, target, sc, _valid = head_band_combine_call(searcher, dense_q)
+    # 8. packed serving at full size: a second reader over the same segment
+    dense_q = head_pair_queries(vocab)
+    packed_searcher, packed_qps, packed_results, k1_packed, k2_launches, k3_launches = serve_packed(
+        packed, queries, dense_q, dev, card, split, n_phrase, full
+    )
+    for i in sample_idx:
+        got_td, want_td = packed_results[i], mix_results[i]
+        if got_td.total_hits != want_td.total_hits or got_td.score_docs != want_td.score_docs:
+            raise AssertionError(f"packed query {i} differs from the decoded run")
+    log("16 packed queries (two of each kind) equal the decoded run's bit for bit "
+        "(docs, f32 scores, total_hits)")
+
+    # 9. the head-band batch's combine call on the packed reader against
+    # its plain version on the card, and the library yardstick
+    _q, cb, target, sc, _valid = head_band_combine_call(packed_searcher, dense_q)
+    pdev = packed_searcher.reader.leaves[0].device
     b = len(dense_q)
     args = (cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc)
-    shape = (b, gdev.max_doc_padded)
+    shape = (b, pdev.max_doc_padded)
     out_k = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
     out_p = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
     cuda_combine.combine_lanes(*args, *out_k)
@@ -592,7 +746,7 @@ def main() -> int:
     k3_plain_ms = cuda_ms(cuda_combine.combine_lanes_plain, (*args, *out_p), reps=2, copies=1)
     # the library yardstick: zeroed planes, then index_add_ of every valid
     # lane of the entries' items at row * md + doc (built before the timer)
-    md = gdev.max_doc_padded
+    md = pdev.max_doc_padded
     items = torch.unique(cb.e_item.long())
     item_row = torch.zeros(target.shape[0], dtype=torch.int64, device=dev)
     item_row[cb.e_item.long()] = cb.e_row.long()
@@ -620,21 +774,9 @@ def main() -> int:
     log(f"combine kernel: {k3_ms:.4f} ms, twin {k3_plain_ms:.3f} ms, index_add_ yardstick "
         f"{k3_lib_ms:.4f} ms ({int(flat.numel())} lanes of {items.numel()} items); "
         f"must move {k3_bytes} bytes, bound {bound_ms(k3_bytes):.4f} ms")
-
     del _q, cb, args, out_k, out_p, out_l, target, sc, _valid, flat, lane_sc, lane_enc
 
-    # 8. packed serving at full size: a second reader over the same segment
-    packed_searcher, packed_qps, packed_results, k1_packed, k2_launches = serve_packed(
-        packed, queries, dev, card, split, n_phrase, full
-    )
-    for i in sample_idx:
-        got_td, want_td = packed_results[i], mix_results[i]
-        if got_td.total_hits != want_td.total_hits or got_td.score_docs != want_td.score_docs:
-            raise AssertionError(f"packed query {i} differs from the decoded run")
-    log("16 packed queries (two of each kind) equal the decoded run's bit for bit "
-        "(docs, f32 scores, total_hits)")
-
-    # 9. the scoring decode of the first packed batch's single-term rows
+    # then the scoring decode of the first packed batch's single-term rows
     # against its plain version on the card
     k2_args = single_k2_call(packed_searcher, queries[:BATCH])
     got = cuda_decode.decode_score_blocks(*k2_args)
@@ -664,12 +806,14 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
-         "launches": launches["combine_lanes"], "max_abs_err": k3_err,
+         "launches": k3_launches, "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
     ], "qps": qps, "packed_qps": packed_qps, "qps_no_phrase": qps_no_phrase,
         "n_docs": n_docs, "n_phrase_rows": n_phrase, "prewarm_planes": n_planes,
-        "prewarm_s": prewarm_s, "plane_mib": plane_mib, "mix_peak_gib": mix_peak}))
+        "prewarm_s": prewarm_s, "plane_mib": plane_mib, "mix_peak_gib": mix_peak,
+        "tf_plane_mib": tf_plane_mib, "tf_plane_s": tf_plane_s, "pair_rows": pair_rows,
+        "plane_rows": plane_rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

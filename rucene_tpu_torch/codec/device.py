@@ -14,12 +14,19 @@ The norms plane (u8[F, MDp]), the packed position stream and the
 per-block position bases serve the phrase path (search/phrase_device.py,
 ops/phrase_plane.py) in both forms.
 
+A decoded segment may also hold dense tf planes (add_tf_planes): one u8
+row per hot term, ``tf_planes[slot, doc]`` = the term's freq there (0
+absent), scattered once from the decoded residency. The tf-plane executor
+(search/executor.execute_planes) reads them; SegmentSnapshot.plane_slots
+maps a term's block_start to its row. plane_policy re-derives the
+reference's byte budget for the card.
+
 Left out, as TPU-only machinery: the +2048-word Mosaic pad (a pad of 2 zero
 words keeps every 2-word read in bounds, in the postings words and the
 position stream alike), the pow2 doc-axis, block and position buckets (the
-doc axis rounds up to a multiple of 1024 so dense combine tiles divide it)
-and ``blk_max_freq`` (callers read the host copy). The tf planes are not
-ported yet (ROADMAP.md §1 item 7).
+doc axis rounds up to a multiple of 1024 so dense combine tiles divide it;
+the tf planes hold exactly one row per term, no pow2 pad row) and
+``blk_max_freq`` (callers read the host copy).
 """
 
 from __future__ import annotations
@@ -35,6 +42,18 @@ from rucene_tpu_torch.util import round_up
 
 DATA_PAD_WORDS = 2  # zero words past the last block: 2-word reads stay in bounds
 DOC_AXIS_MULTIPLE = 1024  # max_doc_padded: whole dense-combine buckets
+
+# The card's memory, fixed, so that a leaf on the CPU (tests) budgets and
+# routes as the card does.
+CARD_BYTES = 80 << 30
+# batch transients per (row, doc) of a 256-row batch: dense f32 + i32
+# accumulators, masked scores and int64 top-k keys (decoded_policy's 45 GB
+# at 256 rows over 8.8M docs)
+BATCH_ROWS = 256
+TRANSIENT_BYTES_PER_ROW_DOC = 20
+PHRASE_PLANE_CAP = 16 << 30  # the phrase position-plane cache's ceiling
+TF_PLANE_CAP = 8 << 30  # the tf planes' ceiling (plane_policy)
+PLANE_CHUNK = 65536  # blocks per tf-plane scatter step
 
 
 @dataclass
@@ -54,6 +73,8 @@ class DeviceSegment:
     docs_dec: torch.Tensor | None = None  # i32[NB,128] local doc ids, INVALID pad
     freqs_dec: torch.Tensor | None = None  # i16|i32[NB,128], 0 pad
     norm_dec: torch.Tensor | None = None  # u8[NB,128] norm bytes
+    # --- dense tf planes (add_tf_planes); None when off ---
+    tf_planes: torch.Tensor | None = None  # u8[P, MDp] hot-term freqs, 0 absent
 
     @property
     def max_doc_padded(self) -> int:
@@ -157,3 +178,109 @@ def decoded_policy(n_blocks: int, max_freq: int) -> tuple[bool, torch.dtype]:
     per_block = 128 * (4 + fb + 1 + 4) + 4  # docs+freq+norm+cval lanes, fid
     limit = int(os.environ.get("RUCENE_DECODED_MAX_MB", 32768)) << 20
     return n_blocks * per_block <= limit, fdt
+
+
+def device_bytes(dev: DeviceSegment) -> int:
+    """Bytes of every tensor a DeviceSegment holds."""
+    return sum(
+        t.numel() * t.element_size() for t in vars(dev).values() if isinstance(t, torch.Tensor)
+    )
+
+
+# --- dense tf planes ----------------------------------------------------------
+
+
+def plane_policy(mdp: int, dev_bytes: int = 0) -> tuple[int, int]:
+    """(budget_bytes, df_min) for dense tf planes under RUCENE_PLANES:
+    ``0`` no planes, ``1`` every term that fits (tests), ``auto`` (the
+    default) terms with df >= mdp // 512 on segments of 2^19 docs or more.
+
+    The reference caps the planes at 4 GB up to 4M docs (2 GB above),
+    sized for about 14 GB of usable TPU memory. Here the budget comes
+    from a fixed card (CARD_BYTES, 80 GB) less what shares it: the
+    segment's own tensors (``dev_bytes``; the decoded residency is at most
+    32 GB, decoded_policy), a 256-row batch's transients over this doc
+    axis (20 bytes a (row, doc): 5.1 GB at 1M docs, 45 GB at 8.8M) and the
+    phrase position-plane cache's 16 GB ceiling; half of what is left, so
+    the allocator keeps room, capped at TF_PLANE_CAP (8 GB). At 1M docs
+    that is the 8 GB cap; at 8.8M docs about 8 GB as well. df_min keeps
+    the reference's mdp // 512; the port's doc axis rounds to 1024, not to
+    a power of two, so at 1M docs df_min is 1954 where the reference's is
+    2048 (routes differ at the margin, results do not)."""
+    env = os.environ.get("RUCENE_PLANES", "auto")
+    if env not in ("0", "1", "auto"):
+        raise ValueError(f"RUCENE_PLANES={env!r}: expected 0, 1 or auto")
+    if env == "0":
+        return 0, 0
+    transient = BATCH_ROWS * TRANSIENT_BYTES_PER_ROW_DOC * mdp
+    budget = max(0, min(TF_PLANE_CAP, (CARD_BYTES - dev_bytes - transient - PHRASE_PLANE_CAP) // 2))
+    if env == "1":
+        return budget, 1
+    if mdp < (1 << 19):
+        # small segments: the lane paths are already cheap there
+        return 0, 0
+    return budget, max(mdp // 512, 4)
+
+
+def select_plane_terms(packed: PackedSegment, mdp: int, budget_bytes: int,
+                       df_min: int):
+    """Pick the plane-resident terms: df >= df_min, per-block max freq
+    <= 255 (u8 exactness), ordered by (-df, block_start), capped by the
+    byte budget. Returns (blk_ids i32[NBsel], slot_ids i32[NBsel],
+    slots {block_start -> slot}) or None."""
+    cap = budget_bytes // max(mdp, 1)
+    if cap <= 0:
+        return None
+    bmf = np.asarray(packed.blk_max_freq)
+    rows: list[tuple[int, int, int]] = []  # (df, block_start, block_count)
+    for pf in packed.fields.values():
+        df = np.asarray(pf.doc_freq)
+        bs = np.asarray(pf.block_start)
+        bc = np.asarray(pf.block_count)
+        for t in np.flatnonzero((df >= df_min) & (bc > 0)):
+            s, c = int(bs[t]), int(bc[t])
+            if int(bmf[s : s + c].max()) > 255:
+                continue
+            rows.append((int(df[t]), s, c))
+    if not rows:
+        return None
+    rows.sort(key=lambda r: (-r[0], r[1]))
+    rows = rows[: int(cap)]
+    slots = {s: i for i, (_df, s, _c) in enumerate(rows)}
+    blk_ids = np.concatenate(
+        [np.arange(s, s + c, dtype=np.int32) for _df, s, c in rows]
+    )
+    slot_ids = np.repeat(
+        np.arange(len(rows), dtype=np.int32),
+        np.asarray([c for _df, _s, c in rows]),
+    )
+    return blk_ids, slot_ids, slots
+
+
+def add_tf_planes(dev: DeviceSegment, packed: PackedSegment):
+    """Build the hot-term u8 tf planes from the decoded residency. Returns
+    (dev', {block_start -> plane row}); (dev, {}) when off or when nothing
+    qualifies. The reference's drop-mode scatter becomes a scatter into a
+    flat buffer with one spare element: pad lanes (INVALID_DOC) write
+    there, and it is never read. Real (row, doc) pairs are unique, so the
+    assignment is deterministic; u8 is exact because select_plane_terms
+    skips terms with a block max freq above 255."""
+    if dev.docs_dec is None or not packed.num_blocks:
+        return dev, {}
+    mdp = dev.max_doc_padded
+    budget, df_min = plane_policy(mdp, device_bytes(dev))
+    if budget <= 0:
+        return dev, {}
+    sel = select_plane_terms(packed, mdp, budget, df_min)
+    if sel is None:
+        return dev, {}
+    blk_ids, slot_ids, slots = sel
+    trash = len(slots) * mdp
+    flat = torch.zeros(trash + 1, dtype=torch.uint8, device=dev.device)
+    for s in range(0, len(blk_ids), PLANE_CHUNK):
+        blk = torch.from_numpy(blk_ids[s : s + PLANE_CHUNK]).to(dev.device).long()
+        row = torch.from_numpy(slot_ids[s : s + PLANE_CHUNK]).to(dev.device).long()
+        d = dev.docs_dec[blk].long()  # [C,128] INVALID_DOC pad
+        idx = torch.where(d < mdp, row[:, None] * mdp + d, trash)
+        flat[idx.reshape(-1)] = dev.freqs_dec[blk].reshape(-1).to(torch.uint8)
+    return replace(dev, tf_planes=flat[:trash].view(len(slots), mdp)), slots

@@ -4,7 +4,9 @@ rows read).
 
 A snapshot builds its DeviceSegment lazily on first search, on the device
 its reader names, decoded or packed as codec/device.decoded_policy says
-(RUCENE_DECODED, read when the segment is built). The small-segment shape
+(RUCENE_DECODED, read when the segment is built). A decoded segment also
+gets its dense tf planes then (codec/device.add_tf_planes, RUCENE_PLANES),
+and the snapshot their rows (plane_slots). The small-segment shape
 floors of the reference, and its rule that serves small segments packed,
 are left out: they exist to reuse compiled XLA programs and to spare the
 TPU host link.
@@ -20,6 +22,7 @@ import torch
 from rucene_tpu_torch.codec.device import (
     DeviceSegment,
     add_decoded_planes,
+    add_tf_planes,
     build_device_segment,
     decoded_policy,
 )
@@ -54,6 +57,9 @@ class SegmentSnapshot:
         self.doc_base = 0  # assigned by IndexReader
         self.torch_device = torch.device("cpu")  # set by IndexReader.to
         self._device: DeviceSegment | None = None
+        # hot-term tf-plane rows {term block_start -> plane row}; filled
+        # when the device segment is built (codec/device.add_tf_planes)
+        self.plane_slots: dict[int, int] = {}
 
     @property
     def device(self) -> DeviceSegment:
@@ -63,8 +69,10 @@ class SegmentSnapshot:
             dev = build_device_segment(packed, self.torch_device, self.live)
             mf = int(packed.blk_max_freq.max()) if packed.num_blocks else 0
             decoded, fdt = decoded_policy(packed.num_blocks, mf)
+            self.plane_slots = {}
             if decoded:
                 dev = add_decoded_planes(dev, freq_dtype=fdt)
+                dev, self.plane_slots = add_tf_planes(dev, packed)
             self._device = dev
         return self._device
 
@@ -154,6 +162,7 @@ class IndexReader:
             if leaf.torch_device != device:
                 leaf.torch_device = device
                 leaf._device = None
+                leaf.plane_slots = {}
         return self
 
     def collection_stats(self, field: str) -> CollectionStats:

@@ -1,6 +1,6 @@
-"""The batched boolean/BM25 flat executors (counterpart of
-rucene_tpu/search/executor.py: execute_flat_impl, execute_flat_single and
-execute_flat_single_dec).
+"""The batched boolean/BM25 executors (counterpart of
+rucene_tpu/search/executor.py: execute_flat_impl, execute_flat_single,
+execute_flat_single_dec, execute_planes and execute_flat_pair).
 
 A batch of queries runs against one segment as a FLAT WORK LIST, one item
 per (query, clause, 128-doc block):
@@ -28,6 +28,16 @@ Single-term rows (one positive-weight clause, no deletes) skip steps 2-3:
 each row's lanes are one posting list in doc order, so a per-row top-k
 over its own item extent (ops/topk.extent_top_k_lanes) is the answer and
 the term's doc_freq its total_hits.
+
+Two routes of their own serve plain boolean rows on decoded segments:
+- execute_planes: rows whose terms all have resident u8 tf planes
+  (codec/device.add_tf_planes) evaluate dense [B, md] elementwise math
+  per clause, then the dense top-k;
+- execute_flat_pair: rows of two positive term clauses (AND2 / OR2) keep
+  the denser clause's lanes as owners and look each owner doc up in the
+  other clause's overlapping blocks (PairBatch), so no [B, md]
+  accumulator and no lane sort is needed.
+Neither reaches a Pallas kernel in the reference; both are torch ops.
 
 Clause kinds follow BooleanQuery: SHOULD=0 MUST=1 FILTER=2 MUST_NOT=3.
 """
@@ -267,6 +277,220 @@ def execute_flat_impl(
         top_docs[: b * k].view(b, k),
         per_row[:b].to(torch.int32),
     )
+
+
+class PlaneBatch(NamedTuple):
+    """Device tables for the dense tf-plane executor (execute_planes):
+    boolean rows whose term clauses all live as resident u8 tf planes.
+    Each row is up to T slots; slot -1 is inert (padding, or a term absent
+    from this segment, which for a required clause matches nothing)."""
+
+    slot: torch.Tensor  # i32[B, T] plane row per clause; -1 inert
+    kindenc: torch.Tensor  # i32[B, T] ENC_REQUIRED/ENC_SHOULD/ENC_NOT; 0 pad
+    weight: torch.Tensor  # f32[B, T] boost*idf*(k1+1); 0 for non-scoring
+    fid: torch.Tensor  # i32[B, T] norms/cache row per clause
+    n_required: torch.Tensor  # i32[B]
+    min_should: torch.Tensor  # i32[B]
+
+
+def execute_planes(
+    planes: torch.Tensor,  # u8[P, md]
+    cval_planes: torch.Tensor,  # f32[F, md] BM25 denominators per doc
+    live: torch.Tensor,  # bool[md]
+    pb: PlaneBatch,
+    k: int,
+    same_fid: int,
+):
+    """Dense boolean/BM25 evaluation over resident tf planes: per clause
+    the gathered u8 rows as f32, ``(w * tf) / (tf + cv)`` added into a
+    [B, md] f32 accumulator and the clause's count encoding where tf > 0;
+    then the boolean match, ``live``, and the dense top-k. Each clause's
+    score takes the lane executor's operands and operation order, so
+    two-clause sums are bit-identical to it.
+
+    same_fid >= 0: every clause shares that norms row, so one [md] cval
+    row broadcasts instead of a per-row [B, md] gather. Temporaries are
+    updated in place to keep the per-(row, doc) peak down
+    (plane_path.plane_row_chunk sizes calls by it). Returns (scores
+    f32[B,k], docs i32[B,k], total_hits i32[B])."""
+    p, md = planes.shape
+    b, t = pb.slot.shape
+    nf = cval_planes.shape[0]
+    acc = torch.zeros((b, md), dtype=torch.float32, device=planes.device)
+    cnt = torch.zeros((b, md), dtype=torch.int32, device=planes.device)
+    cv_shared = cval_planes[same_fid][None, :] if same_fid >= 0 else None
+    for i in range(t):  # T <= 8
+        sl = pb.slot[:, i]
+        tf = planes[sl.clamp(0, p - 1).long()].to(torch.float32)
+        tf.mul_((sl >= 0)[:, None])  # an inert slot reads tf 0
+        cv = (
+            cv_shared
+            if cv_shared is not None
+            else cval_planes[pb.fid[:, i].clamp(0, nf - 1).long()]
+        )
+        cnt.add_(torch.where(tf > 0.0, pb.kindenc[:, i, None], 0))
+        num = tf * pb.weight[:, i, None]
+        acc.add_(num.div_(tf.add_(cv)))
+        del tf, num
+    match = _boolean_match(cnt, pb.n_required[:, None], pb.min_should[:, None])
+    del cnt
+    match &= live[None, :]
+    total_hits = match.sum(dim=1, dtype=torch.int32)
+    scores = acc.masked_fill_(~match, -torch.inf)
+    del match
+    top_scores, top_docs = topk_score_doc(scores, k)
+    return top_scores, top_docs, total_hits
+
+
+class PairBatch(NamedTuple):
+    """Device tables for the pair-gallop executor (execute_flat_pair), the
+    batched analog of the reference's doc-at-a-time leapfrog
+    (conjunction_scorer.rs over skip_reader.rs:118), for rows of exactly
+    two positive term clauses (AND2 / OR2).
+
+    Owner work items are blocks whose lanes are the row's candidate
+    matches: the DENSER clause's blocks (narrow doc spans, so few probe
+    blocks overlap each) carry a [MAXP] table of the overlapping probe
+    (other-clause) block ids. OR2 rows keep a second extent of the
+    sparser clause's lanes with partial scores (own clause only)."""
+
+    oi_mode: torch.Tensor  # i32[W] 1=OR-probing 2=OR-partial 3=AND-probing
+    oi_pw: torch.Tensor  # f32[W] probe clause weight (0 if probe absent)
+    pr_slots: torch.Tensor  # i32[W, MAXP] probe block ids, -1 inert (tail)
+    row_p_start: torch.Tensor  # i32[B] first owner item, probing extent
+    row_p_items: torch.Tensor  # i32[B]
+    row_s_start: torch.Tensor  # i32[B] partial (OR sparse) extent
+    row_s_items: torch.Tensor  # i32[B]
+
+
+PROBE_WINDOW_ELEMS = 1 << 25  # probe-window elements per chunk of owner items
+
+
+def _probe(dev, q, p: PairBatch, target, same_field: bool):
+    """The probe clause's tf and BM25 denominator at each owner lane's doc
+    (tf 0 where the probe list lacks it). An item's probe window, its
+    slots' decoded docs side by side, is sorted: the slots are
+    consecutive blocks of one term, only a term's last block is short,
+    and the pad lanes and -1 slots read INVALID_DOC, which sorts last.
+    So a batched searchsorted of the item's 128 owner docs into its
+    window finds each doc's one possible position, and the tf and
+    denominator there equal the reference's masked sums over a broadcast
+    compare bit for bit, at [W, MAXP * 128] of memory in place of
+    [W, 128, MAXP * 128]. same_field: the probe doc's denominator is the
+    owner lane's own (same doc, same norms row), the reference's
+    "nopcv" variant."""
+    w, maxp = p.pr_slots.shape
+    nbr = dev.docs_dec.shape[0]
+    win_len = maxp * 128
+    ch = max(1, PROBE_WINDOW_ELEMS // win_len)
+    ptf = torch.empty((w, 128), dtype=torch.float32, device=target.device)
+    pcv = (
+        q.cval_dec[q.wi_block.long().clamp(0, nbr - 1)]
+        if same_field
+        else torch.empty_like(ptf)
+    )
+    for o in range(0, w, ch):
+        slots = p.pr_slots[o : o + ch]
+        sb = slots.long().clamp(0, nbr - 1)
+        win = torch.where(
+            (slots >= 0)[:, :, None], dev.docs_dec[sb], INVALID_DOC
+        ).reshape(-1, win_len)
+        tg = target[o : o + ch].contiguous()
+        pos = torch.searchsorted(win, tg).clamp_(max=win_len - 1)
+        found = win.gather(1, pos) == tg
+        blk = sb.gather(1, pos // 128)
+        lane = pos % 128
+        ptf[o : o + ch] = torch.where(found, dev.freqs_dec[blk, lane].to(torch.float32), 0.0)
+        if not same_field:
+            pcv[o : o + ch] = q.cval_dec[blk, lane]
+    return ptf, pcv
+
+
+def _dedup_merge(cs, cd, k: int):
+    """Top-k of concatenated candidates, each doc once at its higher score:
+    order by (score desc, doc asc), then stably by doc, so each doc's
+    first entry is its best; drop the rest; top-k of what remains."""
+    _, p1 = torch.sort(score_doc_keys(cs, cd), dim=1, descending=True, stable=True)
+    cs, cd = cs.gather(1, p1), cd.gather(1, p1)
+    cd, p2 = torch.sort(cd, dim=1, stable=True)
+    cs = cs.gather(1, p2)
+    dup = torch.zeros_like(cd, dtype=torch.bool)
+    dup[:, 1:] = (cd[:, 1:] == cd[:, :-1]) & (cd[:, 1:] != DOC_PAD)
+    cs = cs.masked_fill(dup, -torch.inf)
+    cd = cd.masked_fill(dup, DOC_PAD)
+    _, tj = torch.topk(score_doc_keys(cs, cd), k, dim=1)
+    ts = cs.gather(1, tj)
+    td = torch.where(ts > -torch.inf, cd.gather(1, tj), DOC_PAD)
+    return ts, td
+
+
+def execute_flat_pair(
+    dev: DeviceSegment,
+    q: FlatQueryBatch,
+    p: PairBatch,
+    k: int,
+    max_items_p: int,  # >= every row_p_items
+    max_items_s: int,  # >= every row_s_items; 0 without OR rows
+    with_live: bool = False,
+    same_field: bool = False,
+):
+    """Two-term-clause boolean rows via pair gallop (see PairBatch).
+    Decoded residency only; no decode dedup (q as make_flat_batch builds
+    it for the owner work list). with_live: gather the live mask per lane
+    (segments with deletes). same_field (caller-guaranteed: both clauses
+    of every row on one field): the probe's denominator is the owner
+    lane's own (_probe).
+
+    Owner lanes score their own clause; a lane whose doc the probe list
+    holds adds the probe clause's score, in the lane executor's operand
+    order. Modes: AND (3) matches members only; OR probing (1) matches
+    every owner lane with its full score; OR partial (2) the sparser
+    clause's lanes with their own score. The per-extent top-k
+    (ops/topk.extent_top_k_lanes) is exact within an extent; an OR row
+    merges the probing extent's top-k with the partial extent's top-2k,
+    each doc once at its higher score. That is exact: if 2k partial
+    entries outrank a candidate, at most k of them are duplicates of
+    probing entries, and the rest outrank it with exact scores.
+    total_hits is exact from per-item counts: the probing extent counts
+    live owner lanes outside the probe list (OR) or inside it (AND), the
+    partial extent every live lane. Returns (scores f32[B,k], docs
+    i32[B,k], total_hits i32[B])."""
+    md = dev.max_doc_padded
+    w = p.pr_slots.shape[0]
+    target, sc, valid = decode_score_lanes(dev, q)
+    ptf, pcv = _probe(dev, q, p, target, same_field)
+    member = ptf > 0.0  # real postings have tf >= 1
+    psc = torch.where(member, p.oi_pw[:, None] * ptf / torch.where(member, ptf + pcv, 1.0), 0.0)
+    alive = valid & dev.live[target.clamp(0, md - 1)] if with_live else valid
+    mode = p.oi_mode[:, None]
+    match = alive & (member | (mode != 3))
+    score = torch.where(match, sc + torch.where(mode == 2, 0.0, psc), -torch.inf)
+    count_lane = torch.where(
+        mode == 1, alive & ~member, torch.where(mode == 2, alive, match)
+    )
+    docm = torch.where(match, target, DOC_PAD)
+
+    top_scores, top_docs = extent_top_k_lanes(
+        score, docm, p.row_p_start, p.row_p_items, max_items_p, k
+    )
+    if max_items_s > 0:
+        ts_s, td_s = extent_top_k_lanes(
+            score, docm, p.row_s_start, p.row_s_items, max_items_s, 2 * k
+        )
+        top_scores, top_docs = _dedup_merge(
+            torch.cat([top_scores, ts_s], dim=1), torch.cat([top_docs, td_s], dim=1), k
+        )
+
+    # exact total hits: prefix sums of per-item counts, read per extent
+    csum = torch.zeros(w + 1, dtype=torch.int64, device=sc.device)
+    csum[1:] = torch.cumsum(count_lane.sum(dim=1), 0)
+
+    def ext_hits(start, items):
+        start = start.long()
+        return csum[start + items.long()] - csum[start]
+
+    total_hits = ext_hits(p.row_p_start, p.row_p_items) + ext_hits(p.row_s_start, p.row_s_items)
+    return top_scores, top_docs.to(torch.int32), total_hits.to(torch.int32)
 
 
 def _single_top_k(sc, docs, valid, row_item_start, row_item_count, max_items, k):

@@ -3,7 +3,8 @@ rucene_tpu/search/flat_tables.py).
 
 Host numpy assembly of the per-(query, clause, 128-doc block) work list and
 the dense-combine entry tables and the decode-dedup tables, plus the one
-place executor inputs move to the device (make_flat_batch). Left out of
+place executor inputs move to the device (make_flat_batch), and the
+tf-plane executor's dense denominator planes (cval_plane_for). Left out of
 the reference: the W floor of 1024 and the pow2 pads (of the work list
 and of dedup's distinct-block count, whose floor of 8 is the Pallas
 kernel's item group), which keep XLA shapes reusable, and the TPU gates
@@ -34,7 +35,7 @@ class QueryPlan:
     query pays none of it again. Entries pin the query object (an
     identity-keyed cache must never serve a recycled id())."""
 
-    __slots__ = ("q", "rq", "clause_row", "stats_terms", "leaf_rows")
+    __slots__ = ("q", "rq", "clause_row", "stats_terms", "leaf_rows", "flags")
 
     def __init__(self, q, rq):
         self.q = q
@@ -42,6 +43,7 @@ class QueryPlan:
         self.clause_row = None  # (w[T], occ[T], nreq, msm)
         self.stats_terms = None  # [(field, text)] for _gather_stats
         self.leaf_rows: dict = {}  # id(leaf) -> per-leaf resolution dict
+        self.flags: dict = {}  # reader-stable routing decisions (searcher)
 
 
 def clause_row_for(rq, sim, doc_freqs, stats, plan=None):
@@ -84,7 +86,10 @@ def build_clause_tables(rqs, sim, doc_freqs, stats, b: int, t: int, plans=None):
 
 def leaf_rows_for(leaf, rq, plan=None):
     """One row's per-segment term resolution (block ranges, norms rows,
-    doc_freqs), cached on the plan per leaf identity."""
+    doc_freqs, tf-plane rows), cached on the plan per leaf identity.
+    ``pslot`` is -1 for a term without a plane row (or absent);
+    ``plane_ok`` says every term present in the leaf has one. Read the
+    plane rows after the leaf's device form is built."""
     lid = id(leaf)
     if plan is not None:
         row = plan.leaf_rows.get(lid)
@@ -95,6 +100,9 @@ def leaf_rows_for(leaf, rq, plan=None):
     bc = np.zeros(len(slots), np.int32)
     fid = np.zeros(len(slots), np.int32)
     df = np.zeros(len(slots), np.int32)
+    pslot = np.full(len(slots), -1, np.int32)
+    plane_slots = getattr(leaf, "plane_slots", None)
+    plane_ok = True
     for j, (_occ, c) in enumerate(slots):
         rec = leaf.term_record(c.term.field, c.term.text)
         if rec is None:
@@ -103,7 +111,12 @@ def leaf_rows_for(leaf, rq, plan=None):
         bc[j] = rec.block_count
         fid[j] = leaf.packed.fields[c.term.field].field_id
         df[j] = rec.doc_freq
-    row = dict(bs=bs, bc=bc, fid=fid, df=df)
+        ps = plane_slots.get(rec.block_start) if plane_slots else None
+        if ps is None:
+            plane_ok = False
+        else:
+            pslot[j] = ps
+    row = dict(bs=bs, bc=bc, fid=fid, df=df, pslot=pslot, plane_ok=plane_ok)
     if plan is not None:
         plan.leaf_rows[lid] = row
     return row
@@ -289,6 +302,26 @@ def cval_table_for(dev, cache: np.ndarray) -> torch.Tensor | None:
     while len(_CVAL_CACHE) > 8:
         _CVAL_CACHE.pop(next(iter(_CVAL_CACHE)))
     return tbl
+
+
+_CVAL_PLANE_CACHE: dict = {}  # (id(norms), cache bytes) -> (norms ref, planes)
+
+
+def cval_plane_for(dev, cache: np.ndarray) -> torch.Tensor:
+    """f32[F, MDp] BM25 denominators per doc for the tf-plane executor:
+    ``cache[f, norms[f, d]]``, bit-identical to the lane path's per-lane
+    lookup (same table, same norm byte). Built once per (norms plane,
+    stats); entries pin the keyed tensor (recycled-id() safety)."""
+    key = (id(dev.norms), cache.tobytes())
+    ent = _CVAL_PLANE_CACHE.get(key)
+    if ent is not None and ent[0] is dev.norms:
+        return ent[1]
+    tbl = torch.from_numpy(np.ascontiguousarray(cache, np.float32)).to(dev.device)
+    planes = torch.gather(tbl, 1, dev.norms.long())
+    _CVAL_PLANE_CACHE[key] = (dev.norms, planes)
+    while len(_CVAL_PLANE_CACHE) > 8:
+        _CVAL_PLANE_CACHE.pop(next(iter(_CVAL_PLANE_CACHE)))
+    return planes
 
 
 def _to(a, device, dtype=None) -> torch.Tensor:

@@ -42,6 +42,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rucene_tpu_torch.codec.device import (
+    BATCH_ROWS,
+    CARD_BYTES,
+    PHRASE_PLANE_CAP,
+    TRANSIENT_BYTES_PER_ROW_DOC,
+    device_bytes,
+)
 from rucene_tpu_torch.util.metrics import METRICS
 
 # position-plane cache: (id(packed), device, field, term) -> (plane,
@@ -65,15 +72,6 @@ _PLANE_WORDS_CACHE: dict = {}
 
 # scalar C++ engine cache: id(packed) -> (engine, live-ref, packed-ref)
 _SCALAR_ENGINE_CACHE: dict = {}
-
-# the card's memory when the leaf lives on the CPU (tests), so that routing
-# on the CPU is the card's
-CARD_BYTES = 80 << 30
-# batch transients per (row, doc) of a 256-row batch: dense f32 + i32
-# accumulators, masked scores and int64 top-k keys (codec/device.
-# decoded_policy's 45 GB at 256 rows over 8.8M docs)
-BATCH_ROWS = 256
-TRANSIENT_BYTES_PER_ROW_DOC = 20
 
 _HOST_ITEM9 = "needs host evaluation, which is not ported (ROADMAP.md §1 item 9)"
 
@@ -435,12 +433,8 @@ class PhrasePathMixin:
             total = torch.cuda.mem_get_info(dev.device)[1]
         else:
             total = CARD_BYTES
-        dev_bytes = sum(
-            t.numel() * t.element_size()
-            for t in vars(dev).values() if isinstance(t, torch.Tensor)
-        )
         transient = BATCH_ROWS * TRANSIENT_BYTES_PER_ROW_DOC * dev.max_doc_padded
-        return max(1 << 30, min(16 << 30, (total - dev_bytes - transient) // 2))
+        return max(1 << 30, min(PHRASE_PLANE_CAP, (total - device_bytes(dev) - transient) // 2))
 
     def _plane_admission_active(self, leaf) -> bool:
         return leaf.device.max_doc_padded > self.PLANE_ADMIT_MIN_DOCS

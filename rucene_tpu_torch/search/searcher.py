@@ -1,6 +1,7 @@
 """IndexSearcher: batched entry point over a point-in-time IndexReader
 (counterpart of rucene_tpu/search/searcher.py: the generic flat route, the
-single-term route and the pure phrase routes).
+single-term route, the pair and tf-plane routes and the pure phrase
+routes).
 
 A batch splits by row kind, as the reference's does: term and boolean
 rows go to the device path below, pure phrase rows (one PhraseQuery of 2-8
@@ -11,21 +12,37 @@ behind the term rows' kernels. Counters ``route.device`` and
 
 Term and boolean rows run per leaf on the searcher's torch device, over
 decoded or packed segments alike; leaf hits merge by (score desc, global
-doc asc). Two routes (counters ``route.single`` / ``route.flat``, rows):
+doc asc). Four routes (counters, rows: ``route.single``,
+``route.plane_rows``, ``route.pair_rows``, ``route.flat``):
 - single: a batch of plain term rows (one positive-weight SHOULD clause)
   over leaves without deletes goes to execute_flat_single_dec on a
   decoded leaf, execute_flat_single on a packed one; total_hits is the
   term's doc_freq, so a leaf with deletes keeps such rows generic;
+- planes: plain rows of 1-8 term clauses whose every term has a resident
+  tf plane in every leaf (codec/device.add_tf_planes, RUCENE_PLANES), and
+  whose densest clause has df * PLANE_ROUTE_DIV >= a leaf's doc axis, go
+  to execute_planes (single-term rows the single route takes stay there);
+- pair: AND2 / OR2 rows of two positive term clauses, when every leaf is
+  decoded (RUCENE_PAIR=0 turns the route off), go to execute_flat_pair.
+  Rows whose probe-slot count overflows MAXP_CAP in a leaf rerun there on
+  the flat executor, merged per row (``search.pair_overflow_rows``, rows
+  per leaf), as the reference does;
 - flat: everything else, through the generic flat executor.
 On a corpus of SPLIT_MIN_DOCS or more, a mixed batch splits into single,
-pure-disjunction and other rows (the reference's row classes 0-2), each
-its own executor call. Collection statistics are computed once per
-searcher. Rows this slice does not serve raise NotImplementedError naming
-the ROADMAP.md item that ports them: there is no host fallback.
+pure-disjunction, other, pair and plane rows (the reference's row classes
+0-4), each its own executor call. Below it a batch takes the planes only
+if every row may, else the pair route only if every row may and the
+batch is not all single-term rows. Packed leaves have neither tf planes
+nor the pair route, so their boolean rows stay generic, as the
+reference's do. Collection statistics are computed once per searcher.
+Rows this slice does not serve raise NotImplementedError naming the
+ROADMAP.md item that ports them: there is no host fallback.
 
-Left out of the reference: the pair and tf-plane routes (row classes 3
-and 4), WAND pruning, timeouts, the combined multi-segment view, mixed
-phrase rows, span, range and synonym paths.
+Left out of the reference: WAND pruning, timeouts, the combined
+multi-segment view, mixed phrase rows, span, range and synonym paths, and
+the A/B knobs RUCENE_PLANE_TERMS, RUCENE_PLANES_ROUTE_DIV,
+RUCENE_PAIR_PROBE and RUCENE_PAIR_TOPK (the pair route's probe variant is
+picked from the batch: one field for both clauses of every row, or not).
 """
 
 from __future__ import annotations
@@ -39,10 +56,17 @@ import torch
 
 from rucene_tpu_torch.index.reader import IndexReader
 from rucene_tpu_torch.search.executor import (
+    ENC_NOT,
+    ENC_REQUIRED,
+    ENC_SHOULD,
+    PairBatch,
+    PlaneBatch,
     dense_strategy,
     execute_flat_impl,
+    execute_flat_pair,
     execute_flat_single,
     execute_flat_single_dec,
+    execute_planes,
 )
 from rucene_tpu_torch.search.flat_tables import (
     QueryPlan,
@@ -51,17 +75,24 @@ from rucene_tpu_torch.search.flat_tables import (
     build_flat_work,
     build_leaf_cache,
     build_leaf_tables,
+    cval_plane_for,
     cval_table_for,
     leaf_rows_for,
     make_flat_batch,
     prune_conjunctions,
 )
+from rucene_tpu_torch.search.pair_path import build_pair_work, pair2_eligible
 from rucene_tpu_torch.search.phrase_path import PhrasePathMixin, phrase_row_reason
+from rucene_tpu_torch.search.plane_path import plane_row_chunk, plane_structural
 from rucene_tpu_torch.search.query import Occur, Query, RewrittenQuery, _NeedsHostEval
 from rucene_tpu_torch.search.similarity import BM25Similarity, CollectionStats
 from rucene_tpu_torch.util.metrics import METRICS
 
 SPLIT_MIN_DOCS = 1 << 19  # corpus size from which mixed batches split by row class
+# a row takes the planes when its densest clause has df * PLANE_ROUTE_DIV
+# >= the leaf's doc axis: the plane math is O(md) a row whatever the df,
+# the lane routes scale with the densest clause's blocks
+PLANE_ROUTE_DIV = 512
 
 
 class ScoreDoc(NamedTuple):
@@ -286,11 +317,16 @@ class IndexSearcher(PhrasePathMixin):
         single_rows = [
             p and no_deletes and len(rq.clauses) == 1 for p, rq in zip(pure_rows, rqs)
         ]
+        pair_rows = self._pair_rows(rqs, weight)
+        plane_rows = self._plane_rows(rqs, plans, single_rows)
 
-        # large corpora: split by row class (the reference's classes 0-2)
-        # so single-term rows skip the combine and pure disjunctions skip
-        # the clause counts
-        cls = [0 if s else 1 if p else 2 for s, p in zip(single_rows, pure_rows)]
+        # large corpora: split by row class (the reference's classes 0-4)
+        # so single-term rows skip the combine, pure disjunctions skip the
+        # clause counts, and pair and plane rows take their own routes
+        cls = [
+            4 if pl else 0 if s else 3 if pr else 1 if p else 2
+            for s, p, pr, pl in zip(single_rows, pure_rows, pair_rows, plane_rows)
+        ]
         if (
             b > 1
             and len(set(cls)) > 1
@@ -316,13 +352,31 @@ class IndexSearcher(PhrasePathMixin):
 
         pure = all(pure_rows)
         single = all(single_rows)
-        METRICS.incr("route.single" if single else "route.flat", b)
+        plane = all(plane_rows)
+        pair2 = all(pair_rows) and not single and not plane
+        METRICS.incr(
+            "route.plane_rows" if plane else "route.pair_rows" if pair2
+            else "route.single" if single else "route.flat", b,
+        )
         pending = []
         for leaf in self.reader.leaves:
             cache = build_leaf_cache(leaf, sim, stats)
+            if plane:
+                res = self._run_planes(
+                    leaf, rqs, weight, occur, cache, n_required, min_should, k, plans
+                )
+                pending.append((leaf.doc_base, res))
+                continue
             block_start, block_count, field_id = build_leaf_tables(
                 leaf, rqs, b, t, plans=plans
             )
+            if pair2:
+                res = self._run_pair(
+                    leaf, rqs, weight, field_id, block_start, block_count, cache,
+                    n_required, min_should, occur, k,
+                )
+                pending.append((leaf.doc_base, res))
+                continue
             if single:
                 lane_cnt = np.array(
                     [leaf_rows_for(leaf, rq, plans[i])["df"][0] for i, rq in enumerate(rqs)],
@@ -356,6 +410,121 @@ class IndexSearcher(PhrasePathMixin):
             return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
 
         return finish
+
+    def _pair_rows(self, rqs, weight) -> list[bool]:
+        """Rows the pair route may take (the reference's pair2 flag): two
+        positive term clauses, AND2 or OR2 (pair_path.pair2_eligible),
+        with every leaf decoded; RUCENE_PAIR=0 turns the route off."""
+        if os.environ.get("RUCENE_PAIR", "1") == "0" or not all(
+            lf.device.docs_dec is not None for lf in self.reader.leaves
+        ):
+            return [False] * len(rqs)
+        return [pair2_eligible(rq, weight[i]) for i, rq in enumerate(rqs)]
+
+    def _plane_rows(self, rqs, plans, single_rows) -> list[bool]:
+        """Rows the tf-plane route takes: every leaf holds planes, the row
+        is plain with 1-8 term clauses (plane_path.plane_structural), every
+        term present in a leaf has a plane row there, and in some leaf the
+        densest clause has df * PLANE_ROUTE_DIV >= the doc axis
+        (RUCENE_PLANES=1 waives that, for tests). A single-term row the
+        single route takes stays there. Cached on the plan."""
+        leaves = self.reader.leaves
+        if not all(lf.device.tf_planes is not None and lf.plane_slots for lf in leaves):
+            return [False] * len(rqs)
+        force = os.environ.get("RUCENE_PLANES") == "1"
+        out = []
+        for i, rq in enumerate(rqs):
+            plan = plans[i] if plans else None
+            pl = plan.flags.get("plane") if plan is not None else None
+            if pl is None:
+                pl, hot = plane_structural(rq), False
+                for lf in leaves if pl else ():
+                    row = leaf_rows_for(lf, rq, plan)
+                    if not row["plane_ok"]:
+                        pl = False
+                        break
+                    if len(row["df"]) and int(row["df"].max()) * PLANE_ROUTE_DIV >= lf.device.max_doc_padded:
+                        hot = True
+                pl = pl and (hot or force)
+                if plan is not None:
+                    plan.flags["plane"] = pl
+            out.append(pl and (len(rq.clauses) >= 2 or not single_rows[i]))
+        return out
+
+    def _run_planes(self, leaf, rqs, weight, occur, cache, n_required, min_should, k, plans):
+        """Dense tf-plane calls (executor.execute_planes) for a leaf, in
+        row chunks whose peak stays within plane_path.plane_row_chunk's
+        budget."""
+        dev = leaf.device
+        b, t = weight.shape
+        slot = np.full((b, t), -1, np.int32)
+        fid = np.zeros((b, t), np.int32)
+        for i, rq in enumerate(rqs):
+            row = leaf_rows_for(leaf, rq, plans[i] if plans else None)
+            n = len(row["pslot"])
+            slot[i, :n] = row["pslot"]
+            fid[i, :n] = row["fid"]
+        # occur -> count encoding, inert where the slot is (padding, or a
+        # term absent from this leaf: a required one then matches nothing)
+        kind = np.select(
+            [(occur == int(Occur.MUST)) | (occur == int(Occur.FILTER)),
+             occur == int(Occur.SHOULD), occur == int(Occur.MUST_NOT)],
+            [ENC_REQUIRED, ENC_SHOULD, ENC_NOT], 0,
+        )
+        on = slot >= 0
+        kind = np.where(on, kind, 0)
+        fids = np.unique(fid[on])
+        same_fid = int(fids[0]) if len(fids) == 1 else (0 if len(fids) == 0 else -1)
+        cvp = cval_plane_for(dev, cache)
+        d = dev.device
+        parts = []
+        rows_per = plane_row_chunk(b, dev.max_doc_padded)
+        for s in range(0, b, rows_per):
+            e = s + rows_per
+            pb = PlaneBatch(
+                slot=_put(slot[s:e], d), kindenc=_put(kind[s:e], d),
+                weight=_put(weight[s:e], d, np.float32), fid=_put(fid[s:e], d),
+                n_required=_put(n_required[s:e], d), min_should=_put(min_should[s:e], d),
+            )
+            parts.append(execute_planes(dev.tf_planes, cvp, dev.live, pb, k, same_fid))
+        if len(parts) == 1:
+            return parts[0]
+        return tuple(torch.cat(x) for x in zip(*parts))
+
+    def _run_pair(self, leaf, rqs, weight, field_id, block_start, block_count, cache,
+                  n_required, min_should, occur, k):
+        """Pair-gallop call (executor.execute_flat_pair) for a leaf's AND2 /
+        OR2 rows. Rows whose probe-slot count overflows MAXP_CAP rerun on
+        the flat executor (their block counts only), merged per row."""
+        dev = leaf.device
+        d = dev.device
+        work, ph, bad_rows = build_pair_work(
+            leaf, rqs, weight, field_id, block_start, block_count, len(rqs)
+        )
+        METRICS.incr("search.flat_lanes", int(work[6]) * 128)
+        q = make_flat_batch(work, n_required, min_should, cache, dev)
+        max_p = ph.pop("max_lanes_p") // 128
+        max_s = ph.pop("max_lanes_s") // 128
+        pb = PairBatch(**{name: _put(a, d, a.dtype) for name, a in ph.items()})
+        same_field = all(rq.clauses[0].term.field == rq.clauses[1].term.field for rq in rqs)
+        res = execute_flat_pair(
+            dev, q, pb, k, max_p, max_s, with_live=leaf.live is not None,
+            same_field=same_field,
+        )
+        if not bad_rows:
+            return res
+        METRICS.incr("search.pair_overflow_rows", len(bad_rows))
+        bad = np.zeros(len(rqs), bool)
+        bad[bad_rows] = True
+        work2 = build_flat_work(
+            block_start, np.where(bad[:, None], block_count, 0), weight, field_id, occur
+        )
+        res2 = self._run_work(leaf, work2[:6], cache, n_required, min_should, k, False)
+        bad_t = _put(bad, d, np.bool_)
+        return tuple(
+            torch.where(bad_t[:, None] if x.dim() == 2 else bad_t, y, x)
+            for x, y in zip(res, res2)
+        )
 
     def _run_single_view(self, dev, work, lane_cnt, cache, n_required, min_should, k):
         """Single-term rows over a leaf's flat work list (a packed leaf's

@@ -37,6 +37,8 @@ COPIED = [
     "index/memory.py",
     "native/__init__.py",
     "ops/combine_tables.py",
+    "search/pair_path.py",
+    "search/plane_path.py",
     "search/query.py",
     "search/scalar_engine.py",
     "search/similarity.py",

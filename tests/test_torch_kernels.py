@@ -206,6 +206,14 @@ def test_slice_on_card_matches_cpu(card, strategy, monkeypatch):
     assert_batches_strict(got, want)
 
 
+def _is_pair(q) -> bool:
+    """A two-clause row, both SHOULD or both MUST (_slice_rows' SS / MM)."""
+    if not isinstance(q, T.BooleanQuery):
+        return False
+    occ = {c.occur for c in q.rewrite().clauses}
+    return len(q.rewrite().clauses) == 2 and len(occ) == 1 and occ <= {T.Occur.SHOULD, T.Occur.MUST}
+
+
 def _refuse(*_a, **_k):
     raise AssertionError("a plain decode twin ran for a CUDA tensor")
 
@@ -217,8 +225,9 @@ def test_routes_on_card_match_cpu(card, decoded, deletes, monkeypatch):
     """Packed (RUCENE_DECODED=0) and decoded serving of a mixed batch, split
     by row class, and of a single-term batch, over two segments (one with
     deletes when asked): the card's TopDocs equal the CPU's bit for bit,
-    the single route runs exactly when no leaf has deletes, packed leaves
-    go through the scoring decode kernel, and no plain twin runs on the
+    the single route runs exactly when no leaf has deletes, decoded
+    leaves send the two-term rows to the pair route, packed leaves go
+    through the scoring decode kernel, and no plain twin runs on the
     card."""
     monkeypatch.setenv("RUCENE_DECODED", decoded)
     monkeypatch.setattr(searcher_mod, "SPLIT_MIN_DOCS", 0)
@@ -243,9 +252,11 @@ def test_routes_on_card_match_cpu(card, decoded, deletes, monkeypatch):
     assert_batches_strict(got[0], want[0])
     assert got[1] == want[1]  # one clause: the same f32 operations
     n_single = len(singles) + sum(isinstance(r, T.TermQuery) for r in rows)
+    n_pair = sum(_is_pair(r) for r in rows) if decoded == "1" else 0
     n_rows = len(rows) + len(singles)
     assert counters.get("route.single", 0) == (0 if deletes else n_single)
-    assert counters.get("route.single", 0) + counters.get("route.flat", 0) == n_rows
+    assert counters.get("route.pair_rows", 0) == n_pair
+    assert counters.get("route.single", 0) + counters.get("route.flat", 0) + n_pair == n_rows
     k2 = counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
     assert (k2 > 0) == (decoded == "0")
     assert all((lf.device.docs_dec is None) == (decoded == "0") for lf in s.reader.leaves)
@@ -303,3 +314,53 @@ def test_phrase_routes_on_card_match_cpu(card, route, decoded, monkeypatch):
     route_counter = "search.phrase_plane" if route == "planes" else "search.phrase_device"
     assert counters.get(route_counter, 0) > 0
     assert (counters.get(cuda_decode.LAUNCH_COUNTER, 0) > 0) == (decoded == "0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("deletes", [False, True])
+@pytest.mark.parametrize("route", ["pair", "planes"])
+def test_pair_and_plane_routes_on_card_match_cpu(card, route, deletes, monkeypatch):
+    """Two-term AND / OR rows on the pair route, and the boolean algebra on
+    the tf-plane route (every term planed), over two decoded segments (one
+    with deletes when asked): the card's TopDocs equal the CPU's under
+    tests/torch_hitcheck.py, two-clause rows bit for bit, every row on the
+    route named, and no plain decode twin runs on the card."""
+    monkeypatch.setenv("RUCENE_DECODED", "1")
+    monkeypatch.setenv("RUCENE_PLANES", "1" if route == "planes" else "0")
+    segs = [port_segment("ef_heavy"), port_segment("plain")]
+    live = np.random.default_rng(3).random(segs[1].max_doc) > 0.3 if deletes else None
+
+    def searcher(device):
+        return T.IndexSearcher(IndexReader([
+            SegmentSnapshot("a", segs[0]), SegmentSnapshot("b", segs[1], live=live),
+        ]), device=device)
+
+    vocab = [f"v{i}" for i in range(25)] + ["efhot", "u17", "u4242", "absent"]
+    if route == "pair":
+        rng = np.random.default_rng(8)
+        rows = []
+        for i in range(48):
+            q = T.BooleanQuery()
+            for t in rng.choice(vocab, 2):
+                getattr(q, "should" if i % 2 else "must")(T.TermQuery(T.Term("body", str(t))))
+            rows.append(q)
+    else:
+        rows = [r for r in _slice_rows(vocab) if not isinstance(r, T.TermQuery)]
+    want = searcher("cpu").search_batch(rows, k=1000)
+    monkeypatch.setattr(cuda_decode, "decode_blocks_plain", _refuse)
+    monkeypatch.setattr(cuda_decode, "decode_score_blocks_plain", _refuse)
+    s = searcher(card)
+    for lf in s.reader.leaves:
+        lf.device
+    METRICS.reset()
+    got = s.search_batch(rows, k=1000)
+    counters = METRICS.snapshot()["counters"]
+    assert counters.get("route.pair_rows" if route == "pair" else "route.plane_rows", 0) == len(rows)
+    assert sum(td.total_hits for td in want) > 0
+    assert max(td.total_hits for td in want) < 1000
+    assert_batches_strict(got, want)
+    for g, w, q in zip(got, want, rows):
+        if len(q.rewrite().clauses) <= 2:
+            assert g == w
+    head = s.search_batch(rows, k=10)
+    assert [h.score_docs for h in head] == [g.score_docs[:10] for g in got]

@@ -16,7 +16,8 @@ Packed serving (RUCENE_DECODED=0: the scoring decode's twin on the CPU)
 must match the reference the same way and equal the port's decoded run
 bit for bit. With the row-class split forced on (SPLIT_MIN_DOCS=0),
 single-term rows take the single route exactly when no leaf has deletes,
-as the route counters show.
+and, on decoded leaves, two-term AND / OR rows the pair route, as the
+route counters show.
 """
 
 import numpy as np
@@ -210,7 +211,9 @@ def test_forced_dedup_on_decoded_is_bit_identical(index, monkeypatch):
 def test_routes_by_row_class(index, decoded, monkeypatch):
     """With the split forced on, a mixed batch's term rows take the single
     route, and a single-term batch is one single-route call, unless a leaf
-    has deletes: then every row stays generic. Hits match the reference."""
+    has deletes: then those rows stay generic. On decoded leaves the
+    two-term AND / OR rows take the pair route. Hits match the
+    reference."""
     port, specs, want, want_single = index
     monkeypatch.setenv("RUCENE_DECODED", decoded)
     monkeypatch.setattr(searcher_mod, "SPLIT_MIN_DOCS", 0)
@@ -225,5 +228,7 @@ def test_routes_by_row_class(index, decoded, monkeypatch):
     assert_batches_strict(got, want)
     assert_batches_strict(got_single, want_single)
     n_single = 0 if deletes else n_term + len(singles)
+    n_pair = sum(occ in ("SS", "MM") for occ, _, _ in specs) if decoded == "1" else 0
     assert counters.get("route.single", 0) == n_single
-    assert counters.get("route.flat", 0) == len(specs) + len(singles) - n_single
+    assert counters.get("route.pair_rows", 0) == n_pair
+    assert counters.get("route.flat", 0) == len(specs) + len(singles) - n_single - n_pair

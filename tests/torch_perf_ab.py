@@ -15,7 +15,11 @@ corpus, query, replay and timing helpers from this checkout's
   - K1 over every block and K2 on the first batch's single-term rows,
     timed like the smoke (cold L2, host launch time excluded), and the
     executor's dense combine step (``_combine_dense``: K3 and what feeds
-    it) on the head-band pair batch, timed the same way.
+    it) on the head-band pair batch served by the packed reader, timed
+    the same way;
+  - the rows each route took over the serving passes (``route.*``
+    counters) and the decoded segment's tf-plane bytes (0 for a tree
+    without them).
 Without ``--phrases`` the mix has no phrase rows (AND rows take their
 place), so a tree that serves no phrases is measured on the same rows as
 one that does. ``--phrases`` serves the bench's whole mix (bigrams from the
@@ -95,6 +99,7 @@ def main() -> int:
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_build, cuda_decode
     from rucene_tpu_torch.search import executor
+    from rucene_tpu_torch.util.metrics import METRICS
 
     import rucene_tpu_torch
 
@@ -117,7 +122,9 @@ def main() -> int:
         os.environ["RUCENE_DECODED"] = decoded
         torch.cuda.reset_peak_memory_stats()
         s = reader()
-        s.reader.leaves[0].device  # build the segment's device form now
+        seg = s.reader.leaves[0].device  # build the segment's device form now
+        tf_planes = getattr(seg, "tf_planes", None)
+        out[f"{name}_tf_plane_mib"] = 0.0 if tf_planes is None else tf_planes.numel() / 2**20
         if args.phrases:
             from rucene_tpu_torch.search import phrase_path
 
@@ -128,11 +135,13 @@ def main() -> int:
             out[f"{name}_prewarm_s"] = time.perf_counter() - t
         for i in range(0, len(queries), smoke.BATCH):  # warm pass
             s.search_batch(queries[i:i + smoke.BATCH], k=smoke.K)
+        METRICS.reset()
         qps, _ = smoke.serve(s, queries)
+        routes = {k: v for k, v in METRICS.snapshot()["counters"].items() if k.startswith("route.")}
         ms, busy, top = _profile_passes(torch, smoke, s, queries)
         out[name] = {"qps": qps, "kernel_ms_per_pass": ms, "busy_share": busy,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                     "top_kernels_ms_per_pass": top}
+                     "routes": routes, "top_kernels_ms_per_pass": top}
         if name == "decoded":
             searcher = s
         else:
@@ -152,11 +161,11 @@ def main() -> int:
     out["k2_blocks"] = int(k2_args[1].shape[0])
     out["k2_ms"] = smoke.cuda_ms(cuda_decode.decode_score_blocks, k2_args)
 
-    # K3 on the head-band pair batch, as the executor's dense combine step
-    # runs it (accumulators, the kernel and whatever the tree feeds it)
+    # K3 on the head-band pair batch, as the packed reader's dense combine
+    # step runs it (accumulators, the kernel and whatever the tree feeds it)
     dense_q = smoke.head_pair_queries(vocab)
-    q, cb, target, sc, valid = smoke.head_band_combine_call(searcher, dense_q)
-    md = searcher.reader.leaves[0].device.max_doc_padded
+    q, cb, target, sc, valid = smoke.head_band_combine_call(packed_searcher, dense_q)
+    md = packed_searcher.reader.leaves[0].device.max_doc_padded
     out["k3_step_ms"] = smoke.cuda_ms(
         executor._combine_dense, (q, target, sc, valid, len(dense_q), md, (cb,))
     )
