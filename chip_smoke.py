@@ -23,8 +23,9 @@ Builds the CUDA kernels and the native library from this checkout, then:
      route, both device phrase routes (candidate tables and position
      planes) must be taken, and at 1M docs no phrase row may go to the
      scalar engine or the host. Every two-term row must take the pair
-     or the tf-plane route, and at 1M docs both must be taken; pair rows
-     rerun on the flat executor (probe-slot overflow) are logged;
+     route, the tf-plane route or a rerun on the flat executor (a pair
+     row whose probe slots overflow, search.pair_overflow_rows), and at
+     1M docs pair and planes must both be taken;
   5. measures the peak device memory and time of the first batch's plane
      rows and pair rows, each served alone (the plane executor's peak per
      (row, doc) sizes its row chunks, plane_path.plane_row_chunk);
@@ -56,19 +57,34 @@ Builds the CUDA kernels and the native library from this checkout, then:
      yardstick (zeroed planes plus index_add_ of the items' valid lanes,
      which the port never calls); then the scoring decode of the first
      packed batch's single-term rows against its plain version: docs,
-     freqs and cval bit-equal; times both.
+     freqs and cval bit-equal; times both;
+ 10. mixed rows and score-combine rows on both readers
+     (serve_combine_rows): 256 mixed rows (an exact bigram from the
+     first 5,000 docs, MUST or FILTER, beside 1-2 term clauses of the
+     bench's band), then 112 score-combine rows (dismax, constant-score,
+     boosting, match-all) and 16 head-band dismax rows as their own
+     batch. Each stage runs with its counts set to 0 just before and read
+     just after: every mixed row on route.mixed and none spilled, the
+     combine kernel launched by the mixed rows on both readers and the
+     scoring decode on the packed one, the score-combine rows on both
+     executor branches; the packed answers equal the decoded ones bit for
+     bit, 16 mixed and 16 score-combine rows equal the CPU run; each
+     stage's kernel time and device busy share under torch.profiler, and
+     the peak of one 64-row mixed chunk.
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
 L2), enqueued behind a sleep so that host launch time is not counted
 (cuda_ms). Any failure raises. The last three lines are the kernels'
 JSON record (with qps, packed_qps, qps_no_phrase, tf_plane_mib,
-pair_rows and plane_rows), the card's name and power limit, and the
-device line.
+pair_rows, plane_rows and phase 10's mixed_qps, mixed_packed_qps,
+extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc)), the
+card's name and power limit, and the device line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -183,6 +199,81 @@ def head_pair_queries(vocab, n: int = 32, seed: int = 5):
     return out
 
 
+def band_sampler(vocab, probs, rng, lo: int = 10, hi: int = 5000):
+    """A draw of one term from the bench's rank band (bench.py:142),
+    weighted by its Zipf probability."""
+    band = np.arange(lo, min(hi, len(vocab)))
+    band_p = probs[band] / probs[band].sum()
+    return lambda: vocab[rng.choice(band, p=band_p)]
+
+
+def mixed_queries(phrase_texts, vocab, probs, n: int = 256, seed: int = 17):
+    """Phase 10's mixed rows: one exact bigram from phrase_texts (bench.
+    sample_bigrams), MUST in 3 rows of 4 and FILTER in the fourth, beside
+    1-2 term clauses from the bench's band, SHOULD 1/2, MUST 1/4,
+    MUST_NOT 1/4: at most two scoring term clauses, so a row's sum is
+    exact in any order."""
+    from rucene_tpu_torch import BooleanQuery, PhraseQuery, Term, TermQuery
+
+    rng = np.random.default_rng(seed)
+    term = band_sampler(vocab, probs, rng)
+    bigrams = sample_bigrams(phrase_texts, n)
+    out = []
+    for i in range(n):
+        q = BooleanQuery()
+        (q.filter if i % 4 == 3 else q.must)(PhraseQuery("body", list(bigrams[i % len(bigrams)])))
+        for _ in range(int(rng.integers(1, 3))):
+            u = rng.random()
+            (q.should if u < 0.5 else q.must if u < 0.75 else q.must_not)(
+                TermQuery(Term("body", term()))
+            )
+        out.append(q)
+    return out
+
+
+def extras_queries(vocab, probs, seed: int = 19):
+    """Phase 10's score-combine rows: (112 rows, 16 head-band rows). The
+    112 draw their terms from ranks 200-5000 of the bench's band, sparse
+    enough that their batch takes the flat executor's candidate branch:
+    32 two-term DisjunctionMax rows (tie 0.0 and 0.3), 32 ConstantScore
+    rows over a two-term OR (boost 2.0), 32 Boosting rows (a two-term OR
+    demoted by a third term, factor 0.5) and 16 MatchAll rows (boost 1.0
+    and 3.0). The 16 are two-term DisjunctionMax rows over ranks 0-63,
+    served as their own batch: dense postings, so the dense branch (the
+    combine kernel) carries the extras."""
+    from rucene_tpu_torch import (
+        BooleanQuery,
+        BoostingQuery,
+        ConstantScoreQuery,
+        DisjunctionMaxQuery,
+        MatchAllDocsQuery,
+        Term,
+        TermQuery,
+    )
+
+    rng = np.random.default_rng(seed)
+    term = band_sampler(vocab, probs, rng, lo=200)
+
+    def t(w=None):
+        return TermQuery(Term("body", term() if w is None else w))
+
+    def or2():
+        q = BooleanQuery()
+        q.should(t())
+        q.should(t())
+        return q
+
+    rows = [DisjunctionMaxQuery([t(), t()], tie_breaker=0.3 * (i % 2)) for i in range(32)]
+    rows += [ConstantScoreQuery(or2(), 2.0) for _ in range(32)]
+    rows += [BoostingQuery(or2(), t(), 0.5) for _ in range(32)]
+    rows += [MatchAllDocsQuery(boost=1.0 + 2.0 * (i % 2)) for i in range(16)]
+    head = [
+        DisjunctionMaxQuery([t(vocab[a]), t(vocab[b])], tie_breaker=0.3 * (i % 2))
+        for i, (a, b) in enumerate(rng.choice(64, 2, replace=False) for _ in range(16))
+    ]
+    return rows, head
+
+
 def pack_corpus(texts):
     from rucene_tpu_torch import Document, TextField
     from rucene_tpu_torch.codec.postings import pack_segment
@@ -226,6 +317,40 @@ def cuda_ms(fn, args, reps: int = 20, copies: int = 4) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profile_passes(searcher, queries, passes: int = 3, top: int = 10):
+    """(kernel ms per pass, device busy share: the union of kernel
+    intervals over the wall time, the ``top`` kernels by device time as
+    [name, ms per pass]) over pipelined passes under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pending = []
+        for _ in range(passes):
+            for i in range(0, len(queries), BATCH):
+                pending.append(searcher.search_batch_async(queries[i:i + BATCH], k=K))
+                while len(pending) >= 3:
+                    pending.pop(0)()
+        while pending:
+            pending.pop(0)()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total = sum(b - a for a, b in spans)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for e in events:
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us()
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return total / 1e3 / passes, busy / wall_us, [[n, us / 1e3 / passes] for n, us in ranked]
 
 
 def bound_ms(n_bytes: int) -> float:
@@ -287,20 +412,22 @@ def route_gates(counters, n_two_term: int, n_queries: int, split: bool, where: s
     """The two-term gates over one serving stage's counter deltas: on a
     corpus that splits batches by row class (2^19 docs or more, where the
     tf planes are on as well) every two-term row took the pair or the
-    tf-plane route, and both were taken. Returns (pair rows, plane
-    rows)."""
+    tf-plane route, and both were taken. The one leaf counts each row
+    once: a pair row that overflows MAXP_CAP counts under
+    search.pair_overflow_rows, not route.pair_rows. Returns (pair rows,
+    plane rows)."""
     rows = counters.get("route.device", 0) + counters.get("route.phrase", 0)
     passes = rows // n_queries
     pair = counters.get("route.pair_rows", 0)
     plane = counters.get("route.plane_rows", 0)
+    over = counters.get("search.pair_overflow_rows", 0)
     log(f"{where} two-term rows: route.pair_rows={pair} route.plane_rows={plane} "
-        f"search.pair_overflow_rows={counters.get('search.pair_overflow_rows', 0)} "
-        f"over {passes} passes")
+        f"search.pair_overflow_rows={over} over {passes} passes")
     if not split:
         return pair, plane
-    if pair + plane != passes * n_two_term:
-        raise AssertionError(f"{where}: {pair} pair + {plane} plane rows over {passes} passes, "
-                             f"expected {n_two_term} two-term rows in every pass")
+    if pair + plane + over != passes * n_two_term:
+        raise AssertionError(f"{where}: {pair} pair + {plane} plane + {over} overflow rows over "
+                             f"{passes} passes, expected {n_two_term} two-term rows in every pass")
     if pair <= 0 or plane <= 0:
         raise AssertionError(f"{where}: the pair route ({pair}) or the plane route ({plane}) "
                              "was never taken")
@@ -309,6 +436,23 @@ def route_gates(counters, n_two_term: int, n_queries: int, split: bool, where: s
 
 def counter_delta(after: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items()}
+
+
+@contextlib.contextmanager
+def plain_decode_refused():
+    """The plain decode twins raise while the block runs: packed serving
+    must decode through the kernels."""
+    from rucene_tpu_torch.ops import cuda_decode
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain decode twin ran on the card during packed serving")
+
+    twins = (cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain)
+    cuda_decode.decode_blocks_plain = cuda_decode.decode_score_blocks_plain = refuse
+    try:
+        yield
+    finally:
+        cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain = twins
 
 
 def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
@@ -326,25 +470,21 @@ def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
     from rucene_tpu_torch.search import phrase_path
     from rucene_tpu_torch.util.metrics import METRICS
 
-    def refuse(*_a, **_k):
-        raise AssertionError("a plain decode twin ran on the card during packed serving")
-
-    twins = (cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain)
     prev = os.environ.get("RUCENE_DECODED")
     phrase_path._PLANE_CACHE.clear()  # the decoded reader's planes
     METRICS.reset()
     torch.cuda.reset_peak_memory_stats()
-    cuda_decode.decode_blocks_plain = cuda_decode.decode_score_blocks_plain = refuse
     os.environ["RUCENE_DECODED"] = "0"
     try:
-        searcher = IndexSearcher(IndexReader([SegmentSnapshot("bench", packed)]), device=dev)
-        pdev = searcher.reader.leaves[0].device
+        with plain_decode_refused():
+            searcher = IndexSearcher(IndexReader([SegmentSnapshot("bench", packed)]), device=dev)
+            pdev = searcher.reader.leaves[0].device
     finally:
         if prev is None:
             os.environ.pop("RUCENE_DECODED")
         else:
             os.environ["RUCENE_DECODED"] = prev
-    try:
+    with plain_decode_refused():
         if pdev.docs_dec is not None or pdev.freqs_dec is not None or pdev.norm_dec is not None:
             raise AssertionError("the packed reader built decoded planes")
         t = time.perf_counter()
@@ -359,8 +499,6 @@ def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
         mix_counters = METRICS.snapshot()["counters"]
         searcher.search_batch(dense_q, k=K)
         torch.cuda.synchronize()
-    finally:
-        cuda_decode.decode_blocks_plain, cuda_decode.decode_score_blocks_plain = twins
     counters = METRICS.snapshot()["counters"]  # the packed path ends here
     k3 = counters.get(cuda_combine.LAUNCH_COUNTER, 0)
     mix_k3 = mix_counters.get(cuda_combine.LAUNCH_COUNTER, 0)
@@ -390,6 +528,114 @@ def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
     return searcher, qps, results, k1, k2, k3
 
 
+def serve_combine_rows(searchers, cpu_searcher, mixed_q, extras_q, head_q, card, full):
+    """Phase 10: the mixed rows, then the score-combine rows (the 112,
+    then the 16 head-band rows as their own batch), on each reader of
+    ``searchers`` ({"decoded": ..., "packed": ...}; the packed one with the
+    plain decode twins refused). Each stage is warmed once, then its
+    counts are set to 0, it is served (pipelined passes) and its counts
+    are read. Gates: every mixed row on route.mixed and none spilled;
+    the combine kernel launched by the mixed rows on both readers and the
+    scoring decode on the packed one; both executor branches taken by the
+    score-combine rows; the packed answers equal to the decoded ones bit
+    for bit; 16 mixed and 16 score-combine rows served on the card equal
+    to the same rows served by the port on the CPU. Returns a dict of
+    QPS, launches, routes, device time and peak figures."""
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.util.metrics import METRICS
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
+
+    out = {"launches": {}, "results": {}}
+    for name, searcher in searchers.items():
+        guard = plain_decode_refused() if name == "packed" else contextlib.nullcontext()
+        with guard:
+            searcher.search_batch(mixed_q, k=K)  # warm: planes of terms first seen here
+            METRICS.reset()
+            qps, mixed_res = serve(searcher, mixed_q)
+            mixed = METRICS.snapshot()["counters"]
+            searcher.search_batch(extras_q, k=K)
+            searcher.search_batch(head_q, k=K)
+            METRICS.reset()
+            extras_qps, extras_res = serve(searcher, extras_q)
+            head_res = searcher.search_batch(head_q, k=K)
+            torch.cuda.synchronize()
+            extras = METRICS.snapshot()["counters"]
+        rows = sum(mixed.get(f"route.{r}", 0) for r in ("device", "phrase", "mixed"))
+        passes = rows // len(mixed_q)
+        if rows != passes * len(mixed_q) or mixed.get("route.mixed", 0) != rows:
+            raise AssertionError(f"{name}: {mixed.get('route.mixed', 0)} of {rows} mixed rows "
+                                 "took route.mixed")
+        if mixed.get("search.mixed_host_spill", 0):
+            raise AssertionError(f"{name}: {mixed['search.mixed_host_spill']} mixed rows spilled")
+        k3_mixed = mixed.get(cuda_combine.LAUNCH_COUNTER, 0)
+        k2_mixed = mixed.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
+        if k3_mixed <= 0:
+            raise AssertionError(f"{name}: the mixed rows never launched the combine kernel")
+        if name == "packed" and k2_mixed <= 0:
+            raise AssertionError("packed: the mixed rows never launched the scoring decode")
+        dense = extras.get("search.strategy.dense", 0)
+        cand = extras.get("search.strategy.candidate", 0)
+        if full and (dense <= 0 or cand <= 0):
+            raise AssertionError(f"{name}: the score-combine rows took the dense branch {dense} "
+                                 f"and the candidate branch {cand} times; both must be taken")
+        log(f"{name} mixed rows: {qps:.1f} QPS ({len(mixed_q)} rows, k={K}) on {card}; "
+            f"{passes} passes, route.mixed={mixed.get('route.mixed', 0)}, combine launches "
+            f"{k3_mixed}, scoring decode launches {k2_mixed}, decode launches "
+            f"{mixed.get(cuda_decode.LAUNCH_COUNTER, 0)}, phrase planes built "
+            f"{mixed.get('search.phrase_plane_build', 0)}")
+        log(f"{name} score-combine rows: {extras_qps:.1f} QPS ({len(extras_q)} rows) on {card}; "
+            f"strategy dense={dense} candidate={cand}, combine launches "
+            f"{extras.get(cuda_combine.LAUNCH_COUNTER, 0)}, routes " + " ".join(
+                f"{k}={v}" for k, v in sorted(extras.items()) if k.startswith("route.")))
+        for kname, counter in (("decode_blocks", cuda_decode.LAUNCH_COUNTER),
+                               ("decode_score_blocks", cuda_decode.SCORE_LAUNCH_COUNTER),
+                               ("combine_lanes", cuda_combine.LAUNCH_COUNTER)):
+            out["launches"][kname] = (out["launches"].get(kname, 0) + mixed.get(counter, 0)
+                                      + extras.get(counter, 0))
+        out[f"{name}_mixed_qps"] = qps
+        out[f"{name}_extras_qps"] = extras_qps
+        out["results"][name] = (mixed_res, extras_res + head_res)
+        ms, busy, top = profile_passes(searcher, mixed_q)
+        out[f"{name}_mixed_profile"] = (ms, busy)
+        log(f"{name} mixed rows under torch.profiler: {ms:.2f} ms of kernels a pass of "
+            f"{len(mixed_q)} rows, device busy {100 * busy:.1f}%; top kernels (ms a pass): "
+            + "; ".join(f"{n} {t:.2f}" for n, t in top[:6]))
+        ms, busy, _top = profile_passes(searcher, extras_q)
+        out[f"{name}_extras_profile"] = (ms, busy)
+        log(f"{name} score-combine rows under torch.profiler: {ms:.2f} ms of kernels a pass of "
+            f"{len(extras_q)} rows, device busy {100 * busy:.1f}%")
+
+    dec, pkd = out["results"]["decoded"], out["results"]["packed"]
+    for kind, a, b in (("mixed", dec[0], pkd[0]), ("score-combine", dec[1], pkd[1])):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x.total_hits != y.total_hits or x.score_docs != y.score_docs:
+                raise AssertionError(f"packed {kind} row {i} differs from the decoded run")
+    log(f"packed answers equal the decoded ones bit for bit ({len(dec[0])} mixed rows, "
+        f"{len(dec[1])} score-combine rows)")
+
+    # the peak and time of one 64-row mixed chunk (one arity, one call a leaf)
+    peak, ms, moved = route_peak(searchers["decoded"], mixed_q[:64])
+    mdp = searchers["decoded"].reader.leaves[0].device.max_doc_padded
+    out["mixed_chunk_bytes_per_row_doc"] = peak / (64 * mdp)
+    log(f"a 64-row mixed chunk served alone (decoded): peak {peak / 2**20:.1f} MiB above the "
+        f"resident set ({out['mixed_chunk_bytes_per_row_doc']:.1f} bytes a (row, doc)), "
+        f"{ms:.3f} ms between events; routes {moved}")
+
+    t = time.perf_counter()
+    m_idx = list(range(0, len(mixed_q), len(mixed_q) // 16))[:16]
+    for i, want in zip(m_idx, cpu_searcher.search_batch([mixed_q[i] for i in m_idx], k=K)):
+        assert_topdocs_strict(dec[0][i], want)
+    all_extras = extras_q + head_q
+    e_idx = [0, 9, 18, 27, 32, 41, 50, 59, 64, 73, 82, 91, 96, 105, 112, 121]
+    for i, want in zip(e_idx, cpu_searcher.search_batch([all_extras[i] for i in e_idx], k=K)):
+        assert_topdocs_strict(dec[1][i], want)
+    log(f"16 mixed and 16 score-combine rows match the CPU run hit for hit "
+        f"({time.perf_counter() - t:.1f}s)")
+    del out["results"]
+    return out
+
+
 def single_k2_call(searcher, batch):
     """The scoring decode call the searcher makes for ``batch``'s single-term
     rows on its packed leaf: (data, off, dbits, fbits, base, count, fid,
@@ -400,14 +646,14 @@ def single_k2_call(searcher, batch):
     rqs = [p.rq for p in plans]
     doc_freqs, stats = searcher._gather_stats(rqs, plans)
     b = len(rqs)
-    weight, occur, _, _ = flat_tables.build_clause_tables(
+    weight, occur, *_ = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
     )
     idx = [i for i, rq in enumerate(rqs)
            if searcher._pure_row(rq, weight[i]) and len(rq.clauses) == 1]
     rqs = [rqs[i] for i in idx]
     plans = [plans[i] for i in idx]
-    weight, occur, _, _ = flat_tables.build_clause_tables(
+    weight, occur, *_ = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, len(rqs), 1, plans=plans
     )
     leaf = searcher.reader.leaves[0]
@@ -436,7 +682,7 @@ def head_band_combine_call(searcher, dense_q):
     rqs = [p.rq for p in plans]
     doc_freqs, stats = searcher._gather_stats(rqs, plans)
     b = len(rqs)
-    weight, occur, n_req, min_sh = flat_tables.build_clause_tables(
+    weight, occur, n_req, min_sh, _ma, _bo = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
     )
     leaf = searcher.reader.leaves[0]
@@ -483,7 +729,7 @@ def route_rows(searcher, batch) -> dict:
     rqs = [plans[i].rq for i in idx]
     doc_freqs, stats = searcher._gather_stats(rqs, [plans[i] for i in idx])
     t = max(len(rq.all_slots()) for rq in rqs)
-    weight, _o, _n, _m = flat_tables.build_clause_tables(
+    weight, *_ = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, len(rqs), t, plans=[plans[i] for i in idx]
     )
     single = [searcher._pure_row(rq, weight[j]) and len(rq.clauses) == 1 for j, rq in enumerate(rqs)]
@@ -573,6 +819,8 @@ def main() -> int:
     queries = build_queries(N_QUERIES, vocab, probs, phrase_texts=texts[:5000])
     queries_no_phrase = build_queries(N_QUERIES, vocab, probs)
     n_phrase = sum(type(q).__name__ == "PhraseQuery" for q in queries)
+    mixed_q = mixed_queries(texts[:5000], vocab, probs)  # phase 10's rows
+    extras_q, head_extras_q = extras_queries(vocab, probs)
     packed = pack_corpus(texts)
     del texts
     from rucene_tpu_torch.util.packing import EF_TAG
@@ -693,7 +941,6 @@ def main() -> int:
     log(f"16 queries ({', '.join(sorted({type(queries[i]).__name__ for i in sample_idx}))}) "
         f"match the CPU run hit for hit ({time.perf_counter() - t:.1f}s); routes on the card: "
         + ", ".join(f"{i}:{routes[i]}" for i in sample_idx))
-    del cpu_reader, cpu_searcher
 
     # 7. the decode kernel against its plain version on the card, and times
     seg = build_device_segment(packed, dev)
@@ -793,27 +1040,41 @@ def main() -> int:
         f"{k2_ms:.4f} ms, twin {k2_plain_ms:.4f} ms; must move {k2_bytes} bytes, "
         f"bound {bound_ms(k2_bytes):.4f} ms")
 
+    # 10. mixed phrase rows and score-combine rows on both readers
+    p10 = serve_combine_rows(
+        {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, mixed_q, extras_q,
+        head_extras_q, card, full,
+    )
+    del cpu_reader, cpu_searcher
+
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
-         "launches": launches["decode_blocks"] + k1_packed, "max_abs_err": k1_err,
+         "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"],
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
-         "launches": k2_launches, "max_abs_err": k2_err,
+         "launches": k2_launches + p10["launches"]["decode_score_blocks"],
+         "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
-         "launches": k3_launches, "max_abs_err": k3_err,
+         "launches": k3_launches + p10["launches"]["combine_lanes"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
     ], "qps": qps, "packed_qps": packed_qps, "qps_no_phrase": qps_no_phrase,
         "n_docs": n_docs, "n_phrase_rows": n_phrase, "prewarm_planes": n_planes,
         "prewarm_s": prewarm_s, "plane_mib": plane_mib, "mix_peak_gib": mix_peak,
         "tf_plane_mib": tf_plane_mib, "tf_plane_s": tf_plane_s, "pair_rows": pair_rows,
-        "plane_rows": plane_rows}))
+        "plane_rows": plane_rows, "mixed_rows": len(mixed_q),
+        "mixed_qps": p10["decoded_mixed_qps"], "mixed_packed_qps": p10["packed_mixed_qps"],
+        "extras_qps": p10["decoded_extras_qps"], "extras_packed_qps": p10["packed_extras_qps"],
+        "mixed_chunk_bytes_per_row_doc": p10["mixed_chunk_bytes_per_row_doc"],
+        "mixed_kernel_ms_busy": [p10["decoded_mixed_profile"], p10["packed_mixed_profile"]],
+        "extras_kernel_ms_busy": [p10["decoded_extras_profile"], p10["packed_extras_profile"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

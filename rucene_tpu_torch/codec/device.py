@@ -44,7 +44,8 @@ DATA_PAD_WORDS = 2  # zero words past the last block: 2-word reads stay in bound
 DOC_AXIS_MULTIPLE = 1024  # max_doc_padded: whole dense-combine buckets
 
 # The card's memory, fixed, so that a leaf on the CPU (tests) budgets and
-# routes as the card does.
+# routes as the card does: both plane budgets (phrase_plane_budget,
+# tf_plane_budget) derive from it, never from what a device reports.
 CARD_BYTES = 80 << 30
 # batch transients per (row, doc) of a 256-row batch: dense f32 + i32
 # accumulators, masked scores and int64 top-k keys (decoded_policy's 45 GB
@@ -190,30 +191,52 @@ def device_bytes(dev: DeviceSegment) -> int:
 # --- dense tf planes ----------------------------------------------------------
 
 
+def _card_left(mdp: int, dev_bytes: int) -> int:
+    """CARD_BYTES less a segment's own tensors (``dev_bytes``) and a
+    256-row batch's transients over its doc axis (20 bytes a (row, doc):
+    5.1 GB at 1M docs, 45 GB at 8.8M)."""
+    return CARD_BYTES - dev_bytes - BATCH_ROWS * TRANSIENT_BYTES_PER_ROW_DOC * mdp
+
+
+def phrase_plane_budget(mdp: int, dev_bytes: int) -> int:
+    """The phrase position-plane cache's byte budget for a segment of doc
+    axis ``mdp`` whose own tensors take ``dev_bytes``: half of what
+    _card_left leaves, so the allocator keeps room, clamped to 1 GB ..
+    PHRASE_PLANE_CAP (16 GB). The card is the fixed CARD_BYTES on every
+    device, so a CPU leaf budgets as a card's does, and the budget stays
+    the same for the segment's lifetime."""
+    return max(1 << 30, min(PHRASE_PLANE_CAP, _card_left(mdp, dev_bytes) // 2))
+
+
+def tf_plane_budget(mdp: int, dev_bytes: int) -> int:
+    """The dense tf planes' byte budget under the same rule: half of what
+    _card_left leaves once the phrase cache's ceiling is set aside, capped
+    at TF_PLANE_CAP (8 GB); 0 when nothing is left."""
+    return max(0, min(TF_PLANE_CAP, (_card_left(mdp, dev_bytes) - PHRASE_PLANE_CAP) // 2))
+
+
 def plane_policy(mdp: int, dev_bytes: int = 0) -> tuple[int, int]:
     """(budget_bytes, df_min) for dense tf planes under RUCENE_PLANES:
     ``0`` no planes, ``1`` every term that fits (tests), ``auto`` (the
     default) terms with df >= mdp // 512 on segments of 2^19 docs or more.
 
     The reference caps the planes at 4 GB up to 4M docs (2 GB above),
-    sized for about 14 GB of usable TPU memory. Here the budget comes
-    from a fixed card (CARD_BYTES, 80 GB) less what shares it: the
-    segment's own tensors (``dev_bytes``; the decoded residency is at most
-    32 GB, decoded_policy), a 256-row batch's transients over this doc
-    axis (20 bytes a (row, doc): 5.1 GB at 1M docs, 45 GB at 8.8M) and the
-    phrase position-plane cache's 16 GB ceiling; half of what is left, so
-    the allocator keeps room, capped at TF_PLANE_CAP (8 GB). At 1M docs
-    that is the 8 GB cap; at 8.8M docs about 8 GB as well. df_min keeps
-    the reference's mdp // 512; the port's doc axis rounds to 1024, not to
-    a power of two, so at 1M docs df_min is 1954 where the reference's is
-    2048 (routes differ at the margin, results do not)."""
+    sized for about 14 GB of usable TPU memory. Here the budget is
+    tf_plane_budget: the fixed card (CARD_BYTES, 80 GB) less the segment's
+    own tensors (``dev_bytes``; the decoded residency is at most 32 GB,
+    decoded_policy), a 256-row batch's transients and the phrase cache's
+    16 GB ceiling, halved, capped at 8 GB. At 1M docs that is the 8 GB
+    cap; at 8.8M docs it depends on the residency (tests/
+    test_torch_budgets.py pins both). df_min keeps the reference's
+    mdp // 512; the port's doc axis rounds to 1024, not to a power of
+    two, so at 1M docs df_min is 1954 where the reference's is 2048
+    (routes differ at the margin, results do not)."""
     env = os.environ.get("RUCENE_PLANES", "auto")
     if env not in ("0", "1", "auto"):
         raise ValueError(f"RUCENE_PLANES={env!r}: expected 0, 1 or auto")
     if env == "0":
         return 0, 0
-    transient = BATCH_ROWS * TRANSIENT_BYTES_PER_ROW_DOC * mdp
-    budget = max(0, min(TF_PLANE_CAP, (CARD_BYTES - dev_bytes - transient - PHRASE_PLANE_CAP) // 2))
+    budget = tf_plane_budget(mdp, dev_bytes)
     if env == "1":
         return budget, 1
     if mdp < (1 << 19):

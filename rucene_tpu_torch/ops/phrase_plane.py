@@ -159,20 +159,14 @@ def _popcount_words(x: torch.Tensor) -> torch.Tensor:
     return ((v & 0x7F) + sign).sum(-1)
 
 
-def phrase_plane_search_many(
-    planes: tuple,  # flat, row-major: R rows x n_terms x i32[md, words]
-    overflows: tuple,  # R x n_terms x bool[md]
-    live: torch.Tensor,  # bool[md]
-    denoms: tuple,  # R x f32[md] per-row BM25 denominator planes
-    weights: torch.Tensor,  # f32[R]
-    k: int,
-    n_terms: int,
-) -> tuple:
-    """R same-arity exact phrase rows at once: each slot's planes are
-    stacked to [R, md, words] and the rows verify together. Rows with
-    ov_count > 0 are re-verified whole by the caller's scalar path.
-    Returns (scores f32[R, k], docs i32[R, k], hits i32[R], ov_count
-    i32[R])."""
+def phrase_freqs(planes: tuple, overflows: tuple, live: torch.Tensor, n_terms: int):
+    """The stacked verify of R same-arity exact phrases: each slot's planes
+    stack to [R, md, words], then the shifted AND and its popcount give
+    each doc's phrase frequency. Returns (pf f32[R, md], needs_host
+    bool[R, md]): a live doc where every term is present (bits or the
+    overflow column) and some term overflowed, so its pf is not exact.
+    planes: flat, row-major, R x n_terms x i32[md, words]; overflows the
+    same of bool[md]."""
 
     def slot(src, j):
         return torch.stack(src[j::n_terms])
@@ -188,8 +182,24 @@ def phrase_plane_search_many(
         present_all = present_all & ((pj != 0).any(-1) | oj)
         ov_any = ov_any | oj
         del pj
-    pf = _popcount_words(acc).to(torch.float32)  # [R, md]
-    needs_host = present_all & ov_any & live
+    pf = _popcount_words(acc).to(torch.float32)
+    return pf, present_all & ov_any & live
+
+
+def phrase_plane_search_many(
+    planes: tuple,  # flat, row-major: R rows x n_terms x i32[md, words]
+    overflows: tuple,  # R x n_terms x bool[md]
+    live: torch.Tensor,  # bool[md]
+    denoms: tuple,  # R x f32[md] per-row BM25 denominator planes
+    weights: torch.Tensor,  # f32[R]
+    k: int,
+    n_terms: int,
+) -> tuple:
+    """R same-arity exact phrase rows at once (phrase_freqs), then BM25
+    and the dense top-k. Rows with ov_count > 0 are re-verified whole by
+    the caller's scalar path. Returns (scores f32[R, k], docs i32[R, k],
+    hits i32[R], ov_count i32[R])."""
+    pf, needs_host = phrase_freqs(planes, overflows, live, n_terms)
     match = (pf > 0) & live & ~needs_host
     score = weights[:, None] * pf / (pf + torch.stack(denoms))
     top_scores, top_docs = topk_score_doc(torch.where(match, score, -torch.inf), k)

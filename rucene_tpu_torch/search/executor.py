@@ -1,6 +1,7 @@
 """The batched boolean/BM25 executors (counterpart of
-rucene_tpu/search/executor.py: execute_flat_impl, execute_flat_single,
-execute_flat_single_dec, execute_planes and execute_flat_pair).
+rucene_tpu/search/executor.py: execute_flat_impl with its RowExtras,
+execute_flat_single, execute_flat_single_dec, execute_planes,
+execute_flat_pair, execute_match_all and execute_mixed_planes).
 
 A batch of queries runs against one segment as a FLAT WORK LIST, one item
 per (query, clause, 128-doc block):
@@ -39,7 +40,15 @@ Two routes of their own serve plain boolean rows on decoded segments:
   accumulator and no lane sort is needed.
 Neither reaches a Pallas kernel in the reference; both are torch ops.
 
-Clause kinds follow BooleanQuery: SHOULD=0 MUST=1 FILTER=2 MUST_NOT=3.
+Score-combine rows (dismax, constant-score, boosting) take the flat
+executor with RowExtras applied to each (row, doc) sum before the match;
+match-all rows take execute_match_all; mixed rows (term clauses plus one
+exact phrase) take execute_mixed_planes: the term clauses' dense
+accumulators through the combine kernel (_dense_match) and the phrase's
+position planes (ops/phrase_plane.phrase_freqs).
+
+Clause kinds follow BooleanQuery: SHOULD=0 MUST=1 FILTER=2 MUST_NOT=3, and
+OCC_DEMOTE=4 for a BoostingQuery's negative members.
 """
 
 from __future__ import annotations
@@ -53,19 +62,25 @@ from rucene_tpu_torch.ops.combine_tables import MAX_ROWS
 from rucene_tpu_torch.ops.cuda_combine import combine_lanes
 from rucene_tpu_torch.ops.cuda_decode import decode_score_blocks
 from rucene_tpu_torch.ops.decode import INVALID_DOC
+from rucene_tpu_torch.ops.phrase_plane import phrase_freqs
 from rucene_tpu_torch.ops.topk import (
     DOC_PAD,
+    _pad_to_k,
     extent_top_k_lanes,
     score_doc_keys,
     topk_score_doc,
 )
 from rucene_tpu_torch.util.metrics import METRICS
 
+OCC_DEMOTE = 4  # BoostingQuery negative member: weightless presence bit
+
 # clause-count encodings packed into one int32 accumulator:
 # bits 16+: required (MUST|FILTER) matches, bits 8-15: SHOULD matches,
-# bits 0-3: MUST_NOT matches
+# bits 4-7: demote (BoostingQuery negative) matches, bits 0-3: MUST_NOT
+# matches (so MUST_NOT and demote groups each cap at 15 members)
 ENC_REQUIRED = 1 << 16
 ENC_SHOULD = 1 << 8
+ENC_DEMOTE = 1 << 4
 ENC_NOT = 1
 
 
@@ -99,6 +114,38 @@ class CombineBatch(NamedTuple):
     e_enc: torch.Tensor  # i32[E] clause-count encoding
     residue: torch.Tensor  # i64[R] items left to the plain scatter
     row_lo: int  # first global row of the chunk
+
+
+class RowExtras(NamedTuple):
+    """Per-row score-combine overrides for the flat executor; rows without
+    the feature carry inert values. Applied to the accumulated (row, doc)
+    score in this order:
+    1. dismax (disjunction_max_query.rs:43): (1 - tie) * max + tie * sum
+       of the member scores, for rows with tie >= 0;
+    2. demote (boosting_query.rs:29): score * factor where a demote member
+       matched (the ENC_DEMOTE count bits);
+    3. const (ConstantScoreQuery): score = const wherever matched."""
+
+    dm_tie: torch.Tensor  # f32[B] tie breaker; < 0: not a dismax row
+    const_on: torch.Tensor  # bool[B]
+    const_val: torch.Tensor  # f32[B]
+    demote: torch.Tensor  # f32[B] factor (1.0 inert)
+
+
+def _apply_extras(score, counts, max_sc, ex: RowExtras, rows=None):
+    """RowExtras on combined scores: dense [B, md] (rows None, per-row
+    values broadcast down a column) or per candidate group (``rows`` the
+    group's row). max_sc: the member max, None without dismax rows."""
+
+    def per(v):
+        return v[:, None] if rows is None else v[rows]
+
+    if max_sc is not None:
+        tie = per(ex.dm_tie)
+        score = torch.where(tie >= 0.0, (1.0 - tie) * max_sc + tie * score, score)
+    demote_hit = ((counts >> 4) & 0xF) > 0
+    score = torch.where(demote_hit, score * per(ex.demote), score)
+    return torch.where(per(ex.const_on), per(ex.const_val), score)
 
 
 def dense_strategy(b: int, md: int, n_items: int, strategy: str = "auto") -> bool:
@@ -192,13 +239,19 @@ def execute_flat_impl(
     k: int,
     pure_disjunction: bool = False,
     combine: tuple[CombineBatch, ...] | None = None,
+    extras: RowExtras | None = None,
+    with_dismax: bool = False,
 ):
     """Returns (scores f32[B,k], docs i32[B,k], total_hits i32[B]).
 
     pure_disjunction (caller-guaranteed: every row all-SHOULD with positive
     weights, min_should <= 1) matches on score > 0 and skips the counts.
     ``combine`` (flat_tables.build_combine_batch) selects the dense branch;
-    None selects the candidate branch."""
+    None selects the candidate branch. ``extras`` (never with
+    pure_disjunction) applies RowExtras to the combined scores before the
+    match; with_dismax (some row has dismax_tie >= 0) also takes the
+    member max: a scatter-max into [B, md] in the dense branch, a
+    segmented max over the sorted groups in the candidate branch."""
     b = q.n_required.shape[0]
     md = dev.max_doc_padded
     target, sc, valid = decode_score_lanes(dev, q)
@@ -209,6 +262,16 @@ def execute_flat_impl(
         if pure_disjunction:
             match = acc_score > 0.0
         else:
+            if extras is not None:
+                acc_max = None
+                if with_dismax:
+                    idx = torch.where(
+                        target < md, q.wi_row.long()[:, None] * md + target, b * md
+                    ).reshape(-1)
+                    acc_max = torch.zeros(b * md + 1, dtype=torch.float32, device=sc.device)
+                    acc_max = acc_max.scatter_reduce_(0, idx, sc.reshape(-1), "amax")
+                    acc_max = acc_max[: b * md].view(b, md)
+                acc_score = _apply_extras(acc_score, acc_counts, acc_max, extras)
             match = _boolean_match(
                 acc_counts, q.n_required[:, None], q.min_should[:, None]
             )
@@ -248,6 +311,13 @@ def execute_flat_impl(
             0, gid, lane_enc[perm]
         )
         safe_row = g_row.clamp(max=b - 1)
+        if extras is not None:
+            max_sc = None
+            if with_dismax:
+                max_sc = torch.zeros(n_lanes, dtype=torch.float32, device=dvc).scatter_reduce_(
+                    0, gid, sc.reshape(-1)[perm], "amax"
+                )
+            sum_sc = _apply_extras(sum_sc, sum_enc, max_sc, extras, rows=safe_row)
         g_match = _boolean_match(sum_enc, q.n_required[safe_row], q.min_should[safe_row])
     g_match &= (g_key < pad_key) & dev.live[safe_doc]
 
@@ -277,6 +347,75 @@ def execute_flat_impl(
         top_docs[: b * k].view(b, k),
         per_row[:b].to(torch.int32),
     )
+
+
+def execute_match_all(dev: DeviceSegment, boost: torch.Tensor, k: int):
+    """MatchAllDocsQuery rows (match_all_query.rs): every live doc matches
+    with the row's constant ``boost`` (f32[B]). Scores are equal, so the
+    top-k under (score desc, doc asc) is the first k live docs: a cumsum
+    and a searchsorted, no [B, md] top-k. Returns (scores f32[B,k], docs
+    i32[B,k], total_hits i32[B])."""
+    md = dev.max_doc_padded
+    kk = min(k, md)
+    rank = torch.cumsum(dev.live.to(torch.int32), 0)
+    n_live = rank[-1]
+    tgt = torch.arange(1, kk + 1, dtype=torch.int32, device=rank.device)
+    pos = torch.searchsorted(rank, tgt, side="left").to(torch.int32)
+    valid = tgt <= n_live
+    b = boost.shape[0]
+    top_docs = torch.where(valid, pos, DOC_PAD).expand(b, kk)
+    top_scores = torch.where(valid[None, :], boost[:, None], -torch.inf)
+    top_scores, top_docs = _pad_to_k(top_scores, top_docs, k)
+    return top_scores, top_docs, n_live.to(torch.int32).expand(b)
+
+
+def _dense_match(dev: DeviceSegment, q: FlatQueryBatch, combine: tuple[CombineBatch, ...]):
+    """Dense boolean evaluation of q's term clauses: (match bool[B, md],
+    acc_score f32[B, md]). The accumulators come from _combine_dense (the
+    combine kernel plus its scatter residue), the reference's scatter-add
+    sums: counts exactly, and a sum of at most two scoring clauses a
+    (row, doc) in any order."""
+    b = q.n_required.shape[0]
+    md = dev.max_doc_padded
+    target, sc, valid = decode_score_lanes(dev, q)
+    acc_score, acc_counts = _combine_dense(q, target, sc, valid, b, md, combine)
+    match = _boolean_match(acc_counts, q.n_required[:, None], q.min_should[:, None])
+    return match & dev.live[None, :], acc_score
+
+
+def execute_mixed_planes(
+    dev: DeviceSegment,
+    q: FlatQueryBatch,  # term clauses only: n_required / min_should are term-side
+    combine: tuple[CombineBatch, ...],  # flat_tables.build_combine_batch of q's work
+    planes: tuple,  # flat, row-major: B rows x n_terms x i32[md, words]
+    overflows: tuple,  # B x n_terms x bool[md]
+    denoms: tuple,  # B x f32[md] the phrase field's denominator planes
+    weights: torch.Tensor,  # f32[B] phrase weight boost * sum(idf) * (k1+1); 0 FILTER
+    k: int,
+    n_terms: int,
+):
+    """Mixed boolean rows (term clauses plus one required exact phrase):
+    the term clauses' dense match and scores (_dense_match), the phrase's
+    frequency per doc from its position planes (ops/phrase_plane.
+    phrase_freqs, the stacked verify), then ``acc + w * pf / (pf +
+    denom)`` where the terms match and pf > 0, and the dense top-k. The
+    phrase is required through pf > 0, so a row whose term clauses are
+    all MUST_NOT or FILTER matches docs no lane touched (the combine
+    writes every element of its tiles). Docs the planes flag for the
+    host (a term's overflow column) are left out of the match; ov_count
+    counts those the terms match: such a row needs the reference's host
+    rerun. Returns (scores f32[B,k], docs i32[B,k], hits i32[B], ov_count
+    i32[B])."""
+    match_t, acc = _dense_match(dev, q, combine)
+    pf, needs_host = phrase_freqs(planes, overflows, dev.live, n_terms)
+    ph_score = weights[:, None] * pf / (pf + torch.stack(denoms))
+    match = match_t & (pf > 0) & ~needs_host
+    scores = torch.where(match, acc + ph_score, -torch.inf)
+    del acc, ph_score, pf
+    top_scores, top_docs = topk_score_doc(scores, k)
+    hits = match.sum(1, dtype=torch.int32)
+    ov_count = (needs_host & match_t).sum(1, dtype=torch.int32)
+    return top_scores, top_docs, hits, ov_count
 
 
 class PlaneBatch(NamedTuple):

@@ -19,9 +19,11 @@ import numpy as np
 import torch
 
 from rucene_tpu_torch.search.executor import (
+    ENC_DEMOTE,
     ENC_NOT,
     ENC_REQUIRED,
     ENC_SHOULD,
+    OCC_DEMOTE,
     CombineBatch,
     FlatQueryBatch,
 )
@@ -40,7 +42,7 @@ class QueryPlan:
     def __init__(self, q, rq):
         self.q = q
         self.rq = rq
-        self.clause_row = None  # (w[T], occ[T], nreq, msm)
+        self.clause_row = None  # (w[T], occ[T], nreq, msm, match_all, boost)
         self.stats_terms = None  # [(field, text)] for _gather_stats
         self.leaf_rows: dict = {}  # id(leaf) -> per-leaf resolution dict
         self.flags: dict = {}  # reader-stable routing decisions (searcher)
@@ -60,7 +62,7 @@ def clause_row_for(rq, sim, doc_freqs, stats, plan=None):
                 doc_freqs[(c.term.field, c.term.text)], stats[c.term.field],
                 c.boost,
             )
-    row = (wrow, orow, rq.n_required, rq.effective_min_should())
+    row = (wrow, orow, rq.n_required, rq.effective_min_should(), rq.match_all, rq.boost)
     if plan is not None:
         plan.clause_row = row
     return row
@@ -68,20 +70,26 @@ def clause_row_for(rq, sim, doc_freqs, stats, plan=None):
 
 def build_clause_tables(rqs, sim, doc_freqs, stats, b: int, t: int, plans=None):
     """Segment-independent per-batch tables: weights [b, t], occur kinds
-    [b, t], required-clause counts [b] and min_should [b]."""
+    [b, t] (demote members OCC_DEMOTE), required-clause counts [b],
+    min_should [b], match-all rows bool[b] and their constant scores
+    f32[b]."""
     weight = np.zeros((b, t), dtype=np.float32)
     occur = np.zeros((b, t), dtype=np.int32)
     n_required = np.zeros(b, dtype=np.int32)
     min_should = np.ones(b, dtype=np.int32)
+    match_all_rows = np.zeros(b, dtype=bool)
+    boosts = np.ones(b, dtype=np.float32)
     for i, rq in enumerate(rqs):
-        wrow, orow, nreq, msm = clause_row_for(
+        wrow, orow, nreq, msm, ma, bo = clause_row_for(
             rq, sim, doc_freqs, stats, plans[i] if plans else None
         )
         n_required[i] = nreq
         min_should[i] = msm
+        match_all_rows[i] = ma
+        boosts[i] = bo
         weight[i, : len(wrow)] = wrow
         occur[i, : len(orow)] = orow
-    return weight, occur, n_required, min_should
+    return weight, occur, n_required, min_should, match_all_rows, boosts
 
 
 def leaf_rows_for(leaf, rq, plan=None):
@@ -145,6 +153,7 @@ def build_flat_work(block_start, block_count, weight, field_id, occur):
         np.where((occur == int(Occur.MUST)) | (occur == int(Occur.FILTER)), ENC_REQUIRED, 0)
         + np.where(occur == int(Occur.SHOULD), ENC_SHOULD, 0)
         + np.where(occur == int(Occur.MUST_NOT), ENC_NOT, 0)
+        + np.where(occur == OCC_DEMOTE, ENC_DEMOTE, 0)
     ).astype(np.int32)
 
     bs = block_start.ravel()

@@ -1,8 +1,12 @@
 """Phrase routes for IndexSearcher (counterpart of
-rucene_tpu/search/phrase_path.py), limited to pure phrase rows: one
-PhraseQuery of 2-8 terms, MUST or SHOULD, with no other clause.
+rucene_tpu/search/phrase_path.py): pure phrase rows (one PhraseQuery of
+2-8 terms, MUST or SHOULD, with no other clause) and mixed rows (term
+clauses plus one exact MUST or FILTER phrase, _search_mixed_device: the
+term clauses through the flat work list and the combine kernel, the
+phrase through its position planes, one executor.execute_mixed_planes
+call per arity and chunk of rows).
 
-Three routes per (phrase row, leaf):
+Three routes per (pure phrase row, leaf):
   1. candidate pipeline (search/phrase_device.py): block selection driven
      by the rarest term, then position verify over candidate tables;
   2. position planes (ops/phrase_plane.py): per-term bit planes and a
@@ -22,13 +26,16 @@ Counters (rows unless named): ``search.phrase_device``,
 ``search.phrase_plane_denied`` (plane fetches refused by admission),
 ``search.phrase_scalar_route``, ``search.phrase_host_fallback`` (rows the
 scalar engine took after a device route declined them) and
-``search.phrase_pruned_blocks`` (blocks the selection dropped).
+``search.phrase_pruned_blocks`` (blocks the selection dropped);
+``search.mixed_host_spill`` (mixed rows a leaf the reference would rerun
+on its host engine; the port raises for them).
 
 Caches are module-wide as in the reference, so searchers over one segment
 share them; each entry pins the packed segment its key's id() names.
 Position planes and denominator planes are keyed by (segment, torch
-device) as well. Left out: mixed rows, span groups and synonyms (ROADMAP.md
-§1 items 8 and 9), the pow2 pads and the static slop / has_ef programs,
+device) as well. Left out: mixed rows with range clauses (ROADMAP.md §1
+item 2), span groups and synonyms (item 9), the pow2 row pads, the
+static slop / has_ef programs,
 ``MAX_BUILD_ITEMS``' slicing of hot terms, and the ``search.plane_bytes``
 roofline counter.
 
@@ -42,13 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rucene_tpu_torch.codec.device import (
-    BATCH_ROWS,
-    CARD_BYTES,
-    PHRASE_PLANE_CAP,
-    TRANSIENT_BYTES_PER_ROW_DOC,
-    device_bytes,
-)
+from rucene_tpu_torch.codec.device import device_bytes, phrase_plane_budget
 from rucene_tpu_torch.util.metrics import METRICS
 
 # position-plane cache: (id(packed), device, field, term) -> (plane,
@@ -73,7 +74,8 @@ _PLANE_WORDS_CACHE: dict = {}
 # scalar C++ engine cache: id(packed) -> (engine, live-ref, packed-ref)
 _SCALAR_ENGINE_CACHE: dict = {}
 
-_HOST_ITEM9 = "needs host evaluation, which is not ported (ROADMAP.md §1 item 9)"
+HOST_ITEM9 = "needs host evaluation, which is not ported (ROADMAP.md §1 item 9)"
+RANGE_ITEM2 = "range, exists and prefix filters are not ported (ROADMAP.md §1 item 2)"
 
 
 def _plane_cache_bytes() -> int:
@@ -100,26 +102,50 @@ def _idf_weight(sim, stats, doc_freqs, field, terms, boost) -> np.float32:
     return np.float32(w * np.float32(sim.k1 + np.float32(1.0)))
 
 
+def resident_plane_count(budget: int, mdp: int, words: int, frac: float) -> int:
+    """Planes of ``words`` u32 words a doc (plus the overflow byte) that
+    ``frac`` of a plane budget holds over doc axis ``mdp``; at least one."""
+    return max(1, int(budget * frac) // max(mdp * (words * 4 + 1), 1))
+
+
 def phrase_row_reason(rq) -> str | None:
-    """Why the phrase routes cannot serve a row with phrases (None: a pure
-    phrase row they serve — one phrase of 2 to NMAX terms without gaps,
-    MUST or SHOULD, slop at most SLOP_CAP, and no other clause)."""
+    """Why the phrase routes cannot serve a row with phrases (None: they
+    serve it). Two kinds are served: a pure phrase row (one phrase of 2 to
+    NMAX terms without gaps, MUST or SHOULD, slop at most SLOP_CAP, and no
+    other clause) and a mixed row (term clauses plus one exact phrase of
+    2-8 terms without gaps, MUST or FILTER, in a plain row with no groups
+    and no match-all: the reference's _mixed_device_eligible). A mixed row
+    that would qualify but for its range clauses waits for the filter path
+    (item 2); every other phrase row takes the reference's host path
+    (item 9)."""
     from rucene_tpu_torch.search.phrase_device import NMAX, SLOP_CAP
     from rucene_tpu_torch.search.query import Occur
 
-    if (
-        len(rq.phrases) > 1 or rq.clauses or rq.ranges or rq.groups or rq.match_all
-        or not rq.plain
-    ):
-        return "phrases mixed with other clauses are not ported (ROADMAP.md §1 item 8)"
+    if rq.clauses:
+        _field, terms, _boost, slop = rq.phrases[0]
+        if not (
+            len(rq.phrases) == 1
+            and rq.phrase_occur(0) in (Occur.MUST, Occur.FILTER)
+            and not rq.groups and not rq.match_all and rq.plain
+            and slop == 0 and 2 <= len(terms) <= 8 and all(t is not None for t in terms)
+        ):
+            return (
+                "a mixed row other than term clauses plus one exact MUST or FILTER "
+                f"phrase of 2-8 terms {HOST_ITEM9}"
+            )
+        if len(rq.ranges) > 8:
+            return f"a mixed row of more than 8 range clauses {HOST_ITEM9}"
+        return f"a mixed row with range clauses: {RANGE_ITEM2}" if rq.ranges else None
+    if len(rq.phrases) > 1 or rq.ranges or rq.groups or rq.match_all or not rq.plain:
+        return f"a phrase row with other phrases, filters or combines {HOST_ITEM9}"
     _field, terms, _boost, slop = rq.phrases[0]
     # SHOULD == MUST for a lone phrase (mm bumps to 1)
     if rq.phrase_occur(0) not in (Occur.MUST, Occur.SHOULD):
-        return f"a FILTER or MUST_NOT phrase row {_HOST_ITEM9}"
+        return f"a FILTER or MUST_NOT phrase row {HOST_ITEM9}"
     if any(t is None for t in terms) or not 2 <= len(terms) <= NMAX:
-        return f"a gapped phrase, or one of more than {NMAX} terms, {_HOST_ITEM9}"
+        return f"a gapped phrase, or one of more than {NMAX} terms, {HOST_ITEM9}"
     if not 0 <= slop <= SLOP_CAP:
-        return f"a phrase of slop above {SLOP_CAP} {_HOST_ITEM9}"
+        return f"a phrase of slop above {SLOP_CAP} {HOST_ITEM9}"
     return None
 
 
@@ -150,7 +176,19 @@ class PhrasePathMixin:
     PLANE_ADMIT_MIN_DOCS = 2_000_000
 
     def _phrase_device_eligible(self, rq) -> bool:
-        return rq is not None and bool(rq.phrases) and phrase_row_reason(rq) is None
+        """A pure phrase row the phrase routes serve."""
+        return (
+            rq is not None and bool(rq.phrases) and not rq.clauses
+            and phrase_row_reason(rq) is None
+        )
+
+    def _mixed_device_eligible(self, rq) -> bool:
+        """A mixed row (term clauses plus one required exact phrase) that
+        _search_mixed_device serves."""
+        return (
+            rq is not None and bool(rq.phrases) and bool(rq.clauses)
+            and phrase_row_reason(rq) is None
+        )
 
     @staticmethod
     def _phrase_blocks_for_row(leaf, field, terms, recs, budget_df: int):
@@ -419,22 +457,13 @@ class PhrasePathMixin:
         return finish()
 
     def _plane_budget_bytes(self, leaf) -> int:
-        """Plane-cache byte budget for this leaf: the card's memory (torch.cuda.mem_get_info's total; 80 GB
-        for a CPU leaf, so that tests route as the card does), less the
-        segment's own tensors, less the transients of a 256-row batch over
-        this leaf's doc axis (20 bytes a (row, doc), the figure
-        codec/device.decoded_policy reserves beside its decoded budget),
-        halved so the allocator keeps room; then clamped to 1-16 GB. The
-        total, not the free memory, keeps the budget the same for the
-        segment's lifetime. At 1M docs that is the 16 GB cap: the resident
-        set holds about 1,300 half-width planes of 9.2 MB."""
+        """Plane-cache byte budget for this leaf: codec/device.
+        phrase_plane_budget over its doc axis and its own tensors, the
+        same rule as the tf planes' and the same on every device. At 1M
+        docs that is the 16 GB cap: the resident set holds about 1,300
+        half-width planes of 9.2 MB."""
         dev = leaf.device
-        if dev.device.type == "cuda":
-            total = torch.cuda.mem_get_info(dev.device)[1]
-        else:
-            total = CARD_BYTES
-        transient = BATCH_ROWS * TRANSIENT_BYTES_PER_ROW_DOC * dev.max_doc_padded
-        return max(1 << 30, min(PHRASE_PLANE_CAP, (total - device_bytes(dev) - transient) // 2))
+        return phrase_plane_budget(dev.max_doc_padded, device_bytes(dev))
 
     def _plane_admission_active(self, leaf) -> bool:
         return leaf.device.max_doc_padded > self.PLANE_ADMIT_MIN_DOCS
@@ -474,10 +503,10 @@ class PhrasePathMixin:
         if pf is None:
             out = ((), frozenset())
         else:
-            mdp = leaf.device.max_doc_padded
-            plane_b = mdp * (self._plane_words(leaf, field) * 4 + 1)
-            cap = int(self._plane_budget_bytes(leaf) * self.PLANE_RESIDENT_FRAC)
-            n = max(1, min(len(pf.terms), cap // max(plane_b, 1)))
+            n = min(len(pf.terms), resident_plane_count(
+                self._plane_budget_bytes(leaf), leaf.device.max_doc_padded,
+                self._plane_words(leaf, field), self.PLANE_RESIDENT_FRAC,
+            ))
             bc = np.asarray(pf.block_count)
             order = np.argsort(bc, kind="stable")[::-1][:n]
             keep = order[bc[order] >= 1]
@@ -603,6 +632,121 @@ class PhrasePathMixin:
         _PLANE_CACHE[key] = (denom, None, leaf.packed)
         return denom
 
+    def _search_mixed_device(self, rqs, k: int, _defer: bool = False):
+        """Mixed rows (term clauses plus one required exact phrase): per
+        leaf, the phrase planes fetched with admission, then one
+        executor.execute_mixed_planes call per (arity, chunk of rows),
+        whose term clauses take the flat work list, the lane decode and
+        the combine kernel. A FILTER phrase is weighted 0. A term absent
+        from a leaf (phrase or required clause) means no hit there.
+
+        The reference reruns two kinds of row on its host engine: rows
+        whose planes admission denied, and rows whose term matches meet
+        a plane's overflow column (ov_count > 0). The port has no host
+        engine (ROADMAP.md §1 item 9): such rows are counted under
+        ``search.mixed_host_spill`` (a row a leaf) and the batch raises
+        naming item 9; no row is answered approximately.
+
+        _defer=True returns a finish() closure: every leaf's calls are
+        queued now, every read of a result waits until finish()."""
+        from rucene_tpu_torch.search.executor import execute_mixed_planes
+        from rucene_tpu_torch.search.flat_tables import (
+            build_clause_tables,
+            build_combine_batch,
+            build_flat_work,
+            build_leaf_cache,
+            build_leaf_tables,
+            make_flat_batch,
+        )
+        from rucene_tpu_torch.search.query import Occur
+
+        sim = self.similarity
+        b = len(rqs)
+        doc_freqs, stats = self._gather_stats(rqs)
+        per_query_leaf: list[list] = [[] for _ in range(b)]
+        spilled: set[int] = set()
+        futures = []  # (leaf, rows, result tensors)
+        for leaf in self.reader.leaves:
+            if self._past_deadline():
+                break  # partial results, as on the term path
+            cache = build_leaf_cache(leaf, sim, stats)
+            dev = leaf.device
+            mdp = dev.max_doc_padded
+            plane_map = self._phrase_planes_for_many(
+                leaf, [(rq.phrases[0][0], t) for rq in rqs for t in rq.phrases[0][1]],
+                admit=True,
+            )
+            by_arity: dict[int, list[int]] = {}
+            for i, rq in enumerate(rqs):
+                by_arity.setdefault(len(rq.phrases[0][1]), []).append(i)
+            chunk_rows = max(1, min(self.PHRASE_PLANE_CHUNK, (self.PHRASE_PLANE_CHUNK << 20) // mdp))
+            for nt, idxs in sorted(by_arity.items()):
+                for c0 in range(0, len(idxs), chunk_rows):
+                    cells = []  # (gi, planes, overflows, denom, weight)
+                    for gi in idxs[c0 : c0 + chunk_rows]:
+                        field, terms, boost, _sl = rqs[gi].phrases[0]
+                        got = [plane_map.get((field, t)) for t in terms]
+                        if any(g is False for g in got):
+                            spilled.add(gi)  # admission denied
+                            METRICS.incr("search.mixed_host_spill")
+                            continue
+                        if any(g is None for g in got):
+                            continue  # a phrase term absent here: no hit
+                        fid = leaf.packed.fields[field].field_id
+                        w = _idf_weight(sim, stats, doc_freqs, field, terms, boost)
+                        if rqs[gi].phrase_occur(0) == Occur.FILTER:
+                            w = np.float32(0.0)  # a required, unscored phrase
+                        cells.append((
+                            gi, [g[0] for g in got], [g[1] for g in got],
+                            self._denom_plane_for(leaf, fid, cache[fid]), w,
+                        ))
+                    if not cells:
+                        continue
+                    sub = [rqs[gi] for gi, *_ in cells]
+                    nb = len(sub)
+                    t = max(len(rq.clauses) for rq in sub)
+                    weight, occur, n_req, min_should, _ma, _bo = build_clause_tables(
+                        sub, sim, doc_freqs, stats, nb, t
+                    )
+                    bs, bc, fids = build_leaf_tables(leaf, sub, nb, t)
+                    work = build_flat_work(bs, bc, weight, fids, occur)[:6]
+                    METRICS.incr("search.flat_lanes", int(work[5].sum()) * 128)
+                    fq = make_flat_batch(work, n_req, min_should, cache, dev, dedupe=True)
+                    combine = build_combine_batch(
+                        work, nb, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc,
+                        mdp, dev.device,
+                    )
+                    res = execute_mixed_planes(
+                        dev, fq, combine,
+                        tuple(p for c in cells for p in c[1]),
+                        tuple(o for c in cells for o in c[2]),
+                        tuple(c[3] for c in cells),
+                        _put([c[4] for c in cells], dev.device, np.float32), k, nt,
+                    )
+                    futures.append((leaf, [c[0] for c in cells], res))
+
+        def finish() -> list:
+            for leaf, gis, res in futures:
+                s, d, h, ovc = (x.cpu().numpy() for x in res)
+                for li, gi in enumerate(gis):
+                    if int(ovc[li]) > 0:
+                        spilled.add(gi)
+                        METRICS.incr("search.mixed_host_spill")
+                        continue
+                    keep = s[li] > -np.inf
+                    per_query_leaf[gi].append((leaf.doc_base, d[li][keep], s[li][keep], int(h[li])))
+            if spilled:
+                raise NotImplementedError(
+                    f"{len(spilled)} mixed rows (phrase planes denied or overflowed) "
+                    f"need the reference's host rerun, which is not ported "
+                    f"(ROADMAP.md §1 item 9)"
+                )
+            return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
+
+        if _defer:
+            return finish
+        return finish()
+
     def _search_phrase_planes(self, leaf, rows, rqs, sim, stats, doc_freqs, k):
         """Exact rows via position planes, collected now: (done: gi ->
         (docs, scores, hits), spill: rows for the scalar engine)."""
@@ -717,14 +861,14 @@ class PhrasePathMixin:
         (its _scalar_fallback), which is not ported: NotImplementedError."""
         if any(sl for rq in rqs for (_f, _t, _b, sl) in rq.phrases):
             raise NotImplementedError(
-                f"a sloppy phrase that the candidate tables cannot take {_HOST_ITEM9}"
+                f"a sloppy phrase that the candidate tables cannot take {HOST_ITEM9}"
             )
         try:
             sc = self._scalar_engine_for(leaf, sim, stats, doc_freqs)
         except RuntimeError as e:
             raise NotImplementedError(
                 f"a phrase row the device routes declined, without the native scalar "
-                f"engine ({e}), {_HOST_ITEM9}"
+                f"engine ({e}), {HOST_ITEM9}"
             ) from None
         return sc.search_batch(rqs, k=k)
 

@@ -1,19 +1,23 @@
 """IndexSearcher: batched entry point over a point-in-time IndexReader
-(counterpart of rucene_tpu/search/searcher.py: the generic flat route, the
-single-term route, the pair and tf-plane routes and the pure phrase
-routes).
+(counterpart of rucene_tpu/search/searcher.py: the generic flat route with
+its score-combine rows and match-all rows, the single-term route, the pair
+and tf-plane routes, the pure phrase routes and the mixed phrase rows).
 
 A batch splits by row kind, as the reference's does: term and boolean
-rows go to the device path below, pure phrase rows (one PhraseQuery of 2-8
-terms, MUST or SHOULD, with no other clause) to search/phrase_path.py.
-Both are queued before either is collected, so the phrase work queues
-behind the term rows' kernels. Counters ``route.device`` and
-``route.phrase`` count the rows of each.
+rows (dismax, constant-score, boosting and match-all rows among them) go
+to the device path below, pure phrase rows (one PhraseQuery of 2-8 terms,
+MUST or SHOULD, with no other clause) and mixed rows (term clauses plus
+one required exact phrase) to search/phrase_path.py. All three are queued
+before any is collected, in that order, so the phrase work queues behind
+the term rows' kernels. Counters ``route.device``, ``route.phrase`` and
+``route.mixed`` count the rows of each.
 
 Term and boolean rows run per leaf on the searcher's torch device, over
 decoded or packed segments alike; leaf hits merge by (score desc, global
-doc asc). Four routes (counters, rows: ``route.single``,
-``route.plane_rows``, ``route.pair_rows``, ``route.flat``):
+doc asc). Four routes (counters: ``route.single`` and ``route.flat`` rows
+a batch; ``route.plane_rows`` and ``route.pair_rows`` rows a leaf call,
+the pair count without the rows that overflow, as the reference counts
+them):
 - single: a batch of plain term rows (one positive-weight SHOULD clause)
   over leaves without deletes goes to execute_flat_single_dec on a
   decoded leaf, execute_flat_single on a packed one; total_hits is the
@@ -34,12 +38,19 @@ pure-disjunction, other, pair and plane rows (the reference's row classes
 if every row may, else the pair route only if every row may and the
 batch is not all single-term rows. Packed leaves have neither tf planes
 nor the pair route, so their boolean rows stay generic, as the
-reference's do. Collection statistics are computed once per searcher.
-Rows this slice does not serve raise NotImplementedError naming the
-ROADMAP.md item that ports them: there is no host fallback.
+reference's do. A batch holding a dismax, constant-score or boosting row
+takes no tf planes (their RowExtras exist only on the flat executor), and
+match-all rows take execute_match_all per leaf, merged over the flat
+executor's answer for them. Collection statistics are computed once per
+searcher. Rows this slice does not serve raise NotImplementedError naming
+the ROADMAP.md item that ports them: there is no host fallback.
 
-Left out of the reference: WAND pruning, timeouts, the combined
-multi-segment view, mixed phrase rows, span, range and synonym paths, and
+``search_batch(timeout_s=)`` checks its deadline between leaves on the
+term path and the mixed path; leaves not reached are skipped and
+``timed_out`` is set, so results are partial, as the reference's are.
+
+Left out of the reference: WAND pruning, the combined multi-segment view,
+span, range and synonym paths, and
 the A/B knobs RUCENE_PLANE_TERMS, RUCENE_PLANES_ROUTE_DIV,
 RUCENE_PAIR_PROBE and RUCENE_PAIR_TOPK (the pair route's probe variant is
 picked from the batch: one field for both clauses of every row, or not).
@@ -61,11 +72,13 @@ from rucene_tpu_torch.search.executor import (
     ENC_SHOULD,
     PairBatch,
     PlaneBatch,
+    RowExtras,
     dense_strategy,
     execute_flat_impl,
     execute_flat_pair,
     execute_flat_single,
     execute_flat_single_dec,
+    execute_match_all,
     execute_planes,
 )
 from rucene_tpu_torch.search.flat_tables import (
@@ -82,7 +95,12 @@ from rucene_tpu_torch.search.flat_tables import (
     prune_conjunctions,
 )
 from rucene_tpu_torch.search.pair_path import build_pair_work, pair2_eligible
-from rucene_tpu_torch.search.phrase_path import PhrasePathMixin, phrase_row_reason
+from rucene_tpu_torch.search.phrase_path import (
+    HOST_ITEM9,
+    RANGE_ITEM2,
+    PhrasePathMixin,
+    phrase_row_reason,
+)
 from rucene_tpu_torch.search.plane_path import plane_row_chunk, plane_structural
 from rucene_tpu_torch.search.query import Occur, Query, RewrittenQuery, _NeedsHostEval
 from rucene_tpu_torch.search.similarity import BM25Similarity, CollectionStats
@@ -135,20 +153,15 @@ class TopDocs:
 def unported_reason(rq: RewrittenQuery | None) -> str | None:
     """Why this slice cannot serve a rewritten row (None: it can)."""
     if rq is None:
-        return "needs host evaluation, which is not ported (ROADMAP.md §1 item 9)"
+        return HOST_ITEM9
     if rq.phrases:
         return phrase_row_reason(rq)
+    if rq.match_all and (rq.clauses or rq.ranges):
+        return f"a match-all row with other clauses {HOST_ITEM9}"
     if rq.ranges:
-        return "range, exists and prefix filters are not ported (ROADMAP.md §1 item 9)"
+        return RANGE_ITEM2
     if rq.groups:
-        return "nested clause groups are not ported (ROADMAP.md §1 item 9)"
-    if rq.match_all:
-        return "match-all rows are not ported (ROADMAP.md §1 item 3)"
-    if not rq.plain:
-        return (
-            "dismax, constant-score and boosting rows are not ported "
-            "(ROADMAP.md §1 item 3)"
-        )
+        return f"a row of nested clause groups {HOST_ITEM9}"
     return None
 
 
@@ -166,6 +179,8 @@ class IndexSearcher(PhrasePathMixin):
         self.similarity = similarity or BM25Similarity()
         self._stats: dict[str, CollectionStats] = {}
         self._plan_cache: dict[int, QueryPlan] = {}
+        self._deadline: float | None = None  # time.monotonic() budget of the batch
+        self.timed_out = False  # the last batch skipped leaves past its deadline
 
     # --- statistics ---
     def collection_stats(self, field: str) -> CollectionStats:
@@ -179,16 +194,29 @@ class IndexSearcher(PhrasePathMixin):
     def search(self, query: Query, k: int = 10) -> TopDocs:
         return self.search_batch([query], k)[0]
 
-    def search_batch(self, queries: list[Query], k: int = 10) -> list[TopDocs]:
-        return self.search_batch_async(queries, k)()
+    def count(self, query: Query) -> int:
+        return self.search(query, 1).total_hits
 
-    def search_batch_async(self, queries: list[Query], k: int = 10):
+    def search_batch(
+        self, queries: list[Query], k: int = 10, timeout_s: float | None = None
+    ) -> list[TopDocs]:
+        """timeout_s: a wall-clock budget; leaves not reached in time are
+        skipped and ``timed_out`` is set (partial results)."""
+        return self.search_batch_async(queries, k, timeout_s=timeout_s)()
+
+    def search_batch_async(
+        self, queries: list[Query], k: int = 10, timeout_s: float | None = None
+    ):
         """Pipelined entry point: queues every device operation of this batch
         now and returns a collect() closure producing the TopDocs. A serving
         loop keeps several batches in flight; the host builds batch N+1's
-        tables while the device runs batch N.
+        tables while the device runs batch N. In-flight batches share no
+        timeout state: pass timeout_s only when collecting before the next
+        batch is queued.
 
         RUCENE_STRATEGY=dense|candidate forces an executor branch (A/B)."""
+        self._deadline = None if timeout_s is None else time.monotonic() + timeout_s
+        self.timed_out = False
         t_start = time.perf_counter()
         METRICS.incr("search.queries", len(queries))
         plans = [self._plan_for(q) for q in queries]
@@ -196,34 +224,46 @@ class IndexSearcher(PhrasePathMixin):
             why = unported_reason(p.rq)
             if why is not None:
                 raise NotImplementedError(f"query {i} ({type(p.q).__name__}): {why}")
-        is_phrase = [self._phrase_device_eligible(p.rq) for p in plans]
-        phrase_idx = [i for i, ph in enumerate(is_phrase) if ph]
-        device_idx = [i for i, ph in enumerate(is_phrase) if not ph]
+        phrase_idx = [i for i, p in enumerate(plans) if self._phrase_device_eligible(p.rq)]
+        mixed_idx = [i for i, p in enumerate(plans) if self._mixed_device_eligible(p.rq)]
+        taken = set(phrase_idx) | set(mixed_idx)
+        device_idx = [i for i in range(len(plans)) if i not in taken]
         METRICS.incr("route.device", len(device_idx))
         METRICS.incr("route.phrase", len(phrase_idx))
-        # queue every device path before collecting any: the phrase work
-        # queues behind the term rows' kernels, and its scalar rows run on
-        # the host while both are in flight
-        device_finish = phrase_finish = None
+        METRICS.incr("route.mixed", len(mixed_idx))
+        # queue every device path before collecting any, in the reference's
+        # order: the phrase and mixed work queues behind the term rows'
+        # kernels, and the scalar phrase rows run on the host while all
+        # of it is in flight
+        paths = []
         if device_idx:
-            device_finish = self._search_device(
+            paths.append((device_idx, self._search_device(
                 [plans[i].rq for i in device_idx], k, [plans[i] for i in device_idx]
-            )
+            )))
         if phrase_idx:
-            phrase_finish = self._search_phrases_device(
+            paths.append((phrase_idx, self._search_phrases_device(
                 [plans[i].rq for i in phrase_idx], k, _defer=True
-            )
+            )))
+        if mixed_idx:
+            paths.append((mixed_idx, self._search_mixed_device(
+                [plans[i].rq for i in mixed_idx], k, _defer=True
+            )))
 
         def collect() -> list[TopDocs]:
             out: list[TopDocs | None] = [None] * len(queries)
-            for idx, finish in ((device_idx, device_finish), (phrase_idx, phrase_finish)):
-                if finish is not None:
-                    for i, td in zip(idx, finish()):
-                        out[i] = td
+            for idx, finish in paths:
+                for i, td in zip(idx, finish()):
+                    out[i] = td
             METRICS.observe("search.batch", time.perf_counter() - t_start)
             return out  # type: ignore[return-value]
 
         return collect
+
+    def _past_deadline(self) -> bool:
+        if self._deadline is not None and time.monotonic() > self._deadline:
+            self.timed_out = True
+            return True
+        return False
 
     # --- shared helpers ---
     def _plan_for(self, q) -> QueryPlan:
@@ -296,6 +336,7 @@ class IndexSearcher(PhrasePathMixin):
         return (
             rq.n_required == 0
             and rq.effective_min_should() <= 1
+            and rq.plain
             and bool(rq.clauses)
             and all(c.occur == Occur.SHOULD for c in rq.clauses)
             and all(wrow[j] > 0 for j in range(len(rq.clauses)))
@@ -307,7 +348,7 @@ class IndexSearcher(PhrasePathMixin):
         doc_freqs, stats = _stats if _stats is not None else self._gather_stats(rqs, plans)
         b = len(rqs)
         t = max(max((len(rq.all_slots()) for rq in rqs), default=1), 1)
-        weight, occur, n_required, min_should = build_clause_tables(
+        weight, occur, n_required, min_should, match_all_rows, boosts = build_clause_tables(
             rqs, sim, doc_freqs, stats, b, t, plans=plans
         )
         pure_rows = [self._pure_row(rq, weight[i]) for i, rq in enumerate(rqs)]
@@ -318,7 +359,10 @@ class IndexSearcher(PhrasePathMixin):
             p and no_deletes and len(rq.clauses) == 1 for p, rq in zip(pure_rows, rqs)
         ]
         pair_rows = self._pair_rows(rqs, weight)
-        plane_rows = self._plane_rows(rqs, plans, single_rows)
+        # RowExtras exist only on the flat executor: a batch holding a
+        # dismax, constant-score or boosting row takes no tf planes
+        plain = all(rq.plain for rq in rqs)
+        plane_rows = self._plane_rows(rqs, plans, single_rows) if plain else [False] * b
 
         # large corpora: split by row class (the reference's classes 0-4)
         # so single-term rows skip the combine, pure disjunctions skip the
@@ -351,21 +395,25 @@ class IndexSearcher(PhrasePathMixin):
             return finish_split
 
         pure = all(pure_rows)
+        # a match-all row has no clause, so it is never single (nor pure,
+        # pair or plane): a batch holding one takes the flat executor
         single = all(single_rows)
         plane = all(plane_rows)
         pair2 = all(pair_rows) and not single and not plane
-        METRICS.incr(
-            "route.plane_rows" if plane else "route.pair_rows" if pair2
-            else "route.single" if single else "route.flat", b,
-        )
-        pending = []
+        if not (plane or pair2):  # those two count per leaf call
+            METRICS.incr("route.single" if single else "route.flat", b)
+        extras, with_dismax = (None, False) if plain else _row_extras(rqs, self.device)
+        boosts_t = _put(boosts, self.device, np.float32) if match_all_rows.any() else None
+        pending = []  # (doc_base, result, match-all result or None)
         for leaf in self.reader.leaves:
+            if self._past_deadline():
+                break  # partial results: the leaves left are skipped
             cache = build_leaf_cache(leaf, sim, stats)
             if plane:
                 res = self._run_planes(
                     leaf, rqs, weight, occur, cache, n_required, min_should, k, plans
                 )
-                pending.append((leaf.doc_base, res))
+                pending.append((leaf.doc_base, res, None))
                 continue
             block_start, block_count, field_id = build_leaf_tables(
                 leaf, rqs, b, t, plans=plans
@@ -375,7 +423,7 @@ class IndexSearcher(PhrasePathMixin):
                     leaf, rqs, weight, field_id, block_start, block_count, cache,
                     n_required, min_should, occur, k,
                 )
-                pending.append((leaf.doc_base, res))
+                pending.append((leaf.doc_base, res, None))
                 continue
             if single:
                 lane_cnt = np.array(
@@ -387,7 +435,7 @@ class IndexSearcher(PhrasePathMixin):
                         leaf, block_start[:, 0], block_count[:, 0], weight[:, 0],
                         lane_cnt, cache, k,
                     )
-                    pending.append((leaf.doc_base, res))
+                    pending.append((leaf.doc_base, res, None))
                     continue
             work = build_flat_work(block_start, block_count, weight, field_id, occur)
             work, _ = prune_conjunctions(
@@ -398,13 +446,21 @@ class IndexSearcher(PhrasePathMixin):
                     leaf.device, work, lane_cnt, cache, n_required, min_should, k
                 )
             else:
-                res = self._run_work(leaf, work[:6], cache, n_required, min_should, k, pure)
-            pending.append((leaf.doc_base, res))
+                res = self._run_work(
+                    leaf, work[:6], cache, n_required, min_should, k, pure, extras, with_dismax
+                )
+            ma = execute_match_all(leaf.device, boosts_t, k) if boosts_t is not None else None
+            pending.append((leaf.doc_base, res, ma))
 
         def finish() -> list[TopDocs]:
             per_query_leaf: list[list] = [[] for _ in range(b)]
-            for doc_base, res in pending:
+            for doc_base, res, ma in pending:
                 s, d, h = (x.cpu().numpy() for x in res)
+                if ma is not None:
+                    ms, mdoc, mh = (x.cpu().numpy() for x in ma)
+                    s = np.where(match_all_rows[:, None], ms, s)
+                    d = np.where(match_all_rows[:, None], mdoc, d)
+                    h = np.where(match_all_rows, mh, h)
                 for i in range(b):
                     per_query_leaf[i].append((doc_base, d[i], s[i], int(h[i])))
             return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
@@ -475,6 +531,7 @@ class IndexSearcher(PhrasePathMixin):
         kind = np.where(on, kind, 0)
         fids = np.unique(fid[on])
         same_fid = int(fids[0]) if len(fids) == 1 else (0 if len(fids) == 0 else -1)
+        METRICS.incr("route.plane_rows", b)
         cvp = cval_plane_for(dev, cache)
         d = dev.device
         parts = []
@@ -501,6 +558,7 @@ class IndexSearcher(PhrasePathMixin):
         work, ph, bad_rows = build_pair_work(
             leaf, rqs, weight, field_id, block_start, block_count, len(rqs)
         )
+        METRICS.incr("route.pair_rows", len(rqs) - len(bad_rows))
         METRICS.incr("search.flat_lanes", int(work[6]) * 128)
         q = make_flat_batch(work, n_required, min_should, cache, dev)
         max_p = ph.pop("max_lanes_p") // 128
@@ -554,7 +612,8 @@ class IndexSearcher(PhrasePathMixin):
             max(int(bc.max()), 1),
         )
 
-    def _run_work(self, leaf, arrays, cache, n_required, min_should, k, pure):
+    def _run_work(self, leaf, arrays, cache, n_required, min_should, k, pure,
+                  extras=None, with_dismax=False):
         """One executor call for a leaf's work list."""
         dev = leaf.device
         strategy = os.environ.get("RUCENE_STRATEGY", "auto")
@@ -568,7 +627,33 @@ class IndexSearcher(PhrasePathMixin):
                 leaf.packed.blk_last_doc, dev.max_doc_padded, dev.device,
             )
         q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
-        return execute_flat_impl(dev, q, k, pure_disjunction=pure, combine=combine)
+        return execute_flat_impl(
+            dev, q, k, pure_disjunction=pure, combine=combine, extras=extras,
+            with_dismax=with_dismax,
+        )
+
+
+def _row_extras(rqs, device) -> tuple[RowExtras, bool]:
+    """The batch's RowExtras on ``device`` and whether a row is a dismax
+    row."""
+    b = len(rqs)
+    dm_tie = np.full(b, -1.0, np.float32)
+    const_on = np.zeros(b, bool)
+    const_val = np.zeros(b, np.float32)
+    demote = np.ones(b, np.float32)
+    for i, rq in enumerate(rqs):
+        if rq.dismax_tie is not None:
+            dm_tie[i] = rq.dismax_tie
+        if rq.const_score is not None:
+            const_on[i] = True
+            const_val[i] = rq.const_score
+        if rq.demotes:
+            demote[i] = rq.demotes[0][0]
+    extras = RowExtras(
+        dm_tie=_put(dm_tie, device, np.float32), const_on=_put(const_on, device, np.bool_),
+        const_val=_put(const_val, device, np.float32), demote=_put(demote, device, np.float32),
+    )
+    return extras, bool((dm_tie >= 0).any())
 
 
 def _put(a, device, dtype=np.int32) -> torch.Tensor:

@@ -255,7 +255,7 @@ def test_routes_on_card_match_cpu(card, decoded, deletes, monkeypatch):
     n_pair = sum(_is_pair(r) for r in rows) if decoded == "1" else 0
     n_rows = len(rows) + len(singles)
     assert counters.get("route.single", 0) == (0 if deletes else n_single)
-    assert counters.get("route.pair_rows", 0) == n_pair
+    assert counters.get("route.pair_rows", 0) == n_pair * 2  # rows a leaf call
     assert counters.get("route.single", 0) + counters.get("route.flat", 0) + n_pair == n_rows
     k2 = counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
     assert (k2 > 0) == (decoded == "0")
@@ -355,7 +355,8 @@ def test_pair_and_plane_routes_on_card_match_cpu(card, route, deletes, monkeypat
     METRICS.reset()
     got = s.search_batch(rows, k=1000)
     counters = METRICS.snapshot()["counters"]
-    assert counters.get("route.pair_rows" if route == "pair" else "route.plane_rows", 0) == len(rows)
+    # rows a leaf call, over the two leaves
+    assert counters.get("route.pair_rows" if route == "pair" else "route.plane_rows", 0) == 2 * len(rows)
     assert sum(td.total_hits for td in want) > 0
     assert max(td.total_hits for td in want) < 1000
     assert_batches_strict(got, want)
@@ -364,3 +365,63 @@ def test_pair_and_plane_routes_on_card_match_cpu(card, route, deletes, monkeypat
             assert g == w
     head = s.search_batch(rows, k=10)
     assert [h.score_docs for h in head] == [g.score_docs[:10] for g in got]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decoded", ["0", "1"])
+def test_mixed_and_score_combine_rows_on_card_match_cpu(card, decoded, monkeypatch):
+    """Mixed rows (term clauses plus a MUST or FILTER exact phrase) and
+    score-combine rows (dismax, constant-score, boosting, match-all) over
+    two segments, one with deletes, on both executor branches: the card's
+    TopDocs equal the CPU's under tests/torch_hitcheck.py, the mixed rows
+    launch the combine kernel (and on packed leaves the scoring decode),
+    and no plain decode twin runs on the card."""
+    from rucene_tpu_torch.ops import cuda_combine
+
+    monkeypatch.setenv("RUCENE_DECODED", decoded)
+    segs = [port_segment("ef_heavy"), port_segment("plain")]
+    live = np.random.default_rng(3).random(segs[1].max_doc) > 0.3
+    rng = np.random.default_rng(21)
+    vocab = [f"v{i}" for i in range(25)] + ["efhot", "u17"]
+
+    def t(w):
+        return T.TermQuery(T.Term("body", str(w)))
+
+    mixed = []
+    for i in range(24):
+        q = T.BooleanQuery()
+        (q.filter if i % 4 == 3 else q.must)(T.PhraseQuery("body", [str(w) for w in rng.choice(vocab, 2)]))
+        for occ in ("should", "must", "must_not")[: 1 + i % 3]:
+            getattr(q, occ)(t(rng.choice(vocab)))
+        mixed.append(q)
+    extras = [T.DisjunctionMaxQuery([t(a), t(b)], tie_breaker=0.3 * (i % 2))
+              for i, (a, b) in enumerate(rng.choice(vocab, (8, 2)))]
+    extras += [T.ConstantScoreQuery(t(w), 2.0) for w in rng.choice(vocab, 4)]
+    extras += [T.BoostingQuery(t(a), t(b), 0.5) for a, b in rng.choice(vocab, (4, 2))]
+    extras += [T.MatchAllDocsQuery(boost=3.0)]
+
+    def searcher(device):
+        return T.IndexSearcher(IndexReader([
+            SegmentSnapshot("a", segs[0]), SegmentSnapshot("b", segs[1], live=live),
+        ]), device=device)
+
+    phrase_path._PLANE_CACHE.clear()
+    cpu = searcher("cpu")
+    want_mixed, want_extras = cpu.search_batch(mixed, k=1000), cpu.search_batch(extras, k=1000)
+    monkeypatch.setattr(cuda_decode, "decode_blocks_plain", _refuse)
+    monkeypatch.setattr(cuda_decode, "decode_score_blocks_plain", _refuse)
+    s = searcher(card)
+    for lf in s.reader.leaves:
+        lf.device
+    METRICS.reset()
+    got = s.search_batch(mixed, k=1000)
+    counters = METRICS.snapshot()["counters"]
+    assert counters.get("route.mixed", 0) == len(mixed)
+    assert counters.get(cuda_combine.LAUNCH_COUNTER, 0) > 0
+    assert (counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0) > 0) == (decoded == "0")
+    assert sum(td.total_hits for td in want_mixed) > 0
+    assert_batches_strict(got, want_mixed)
+    assert max(td.total_hits for td in want_extras) < 1000
+    for strategy in ("dense", "candidate"):
+        monkeypatch.setenv("RUCENE_STRATEGY", strategy)
+        assert_batches_strict(s.search_batch(extras, k=1000), want_extras)

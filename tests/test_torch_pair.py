@@ -26,6 +26,7 @@ import torch
 
 from rucene_tpu.index.reader import SegmentSnapshot as RefSnapshot
 from rucene_tpu.search import pair_path as ref_pair
+from rucene_tpu.util.metrics import METRICS as REF_METRICS
 from rucene_tpu_torch.search import executor, flat_tables, pair_path
 from rucene_tpu_torch.search import searcher as searcher_mod
 from rucene_tpu_torch.search.searcher import TopDocs
@@ -81,7 +82,7 @@ def _serve(monkeypatch, leaves, rows, k, pair="1"):
 def test_pair_matches_reference(index, monkeypatch):
     leaves, rows, want = index
     got, counters = _serve(monkeypatch, leaves, rows, K_ALL)
-    assert counters.get("route.pair_rows", 0) == len(rows)
+    assert counters.get("route.pair_rows", 0) == len(rows) * len(leaves)  # a leaf call
     assert counters.get("route.flat", 0) == 0
     assert max(td.total_hits for td in want) < K_ALL
     assert_batches_strict(got, want)
@@ -98,7 +99,7 @@ def test_pair_truncated_lists(index, k, monkeypatch):
     leaves, rows, _want = index
     full, _ = _serve(monkeypatch, leaves, rows, K_ALL)
     got, counters = _serve(monkeypatch, leaves, rows, k)
-    assert counters.get("route.pair_rows", 0) == len(rows)
+    assert counters.get("route.pair_rows", 0) == len(rows) * len(leaves)
     for g, f in zip(got, full):
         assert g.total_hits == f.total_hits
         assert g.score_docs == f.score_docs[:k]
@@ -106,9 +107,10 @@ def test_pair_truncated_lists(index, k, monkeypatch):
     assert got == flat
 
 
-def _overflow_segment():
+def _overflow_segment(n_segments=1):
     """A sparse owner whose wide blocks each overlap many narrow blocks of
-    a locally dense probe term: its probe-slot count passes MAXP_CAP."""
+    a locally dense probe term: its probe-slot count passes MAXP_CAP. With
+    n_segments, each segment holds the whole pattern."""
     a_docs = set(range(0, 64 * 1024, 20))
     b_docs = set(range(30000, 32900))
     texts = []
@@ -119,17 +121,27 @@ def _overflow_segment():
         if i in b_docs:
             toks.append("tb")
         texts.append(" ".join(toks))
-    return ref_segments(texts)
+    return ref_segments(texts * n_segments, n_segments)
 
 
-def test_pair_overflow_reruns_on_flat(monkeypatch):
-    leaves = [(p, None) for p in _overflow_segment()]
+@pytest.mark.parametrize("n_segments", [1, 2])
+def test_pair_overflow_reruns_on_flat(n_segments, monkeypatch):
+    """The overflow rows rerun on the flat executor, and the route
+    counters count as the reference's do: pair rows a leaf call without
+    the overflow rows, overflow rows a leaf."""
+    leaves = [(p, None) for p in _overflow_segment(n_segments)]
     rows = [[(occ, "body", "ta"), (occ, "body", "tb")] for occ in "MS"]
     rows.append([("M", "body", "ta"), ("M", "body", "filler")])
-    want = ref_search(leaves, rows, 8000)
+    REF_METRICS.reset()
+    # decoded as the port's leaves are (the reference serves small
+    # segments packed unless told): its pair route needs decoded leaves
+    want = ref_search(leaves, rows, 8000, env={"RUCENE_DECODED": "1"})
+    ref_counters = REF_METRICS.snapshot()["counters"]
     got, counters = _serve(monkeypatch, leaves, rows, 8000)
-    assert counters.get("search.pair_overflow_rows", 0) == 2
-    assert counters.get("route.pair_rows", 0) == len(rows)
+    names = ("route.pair_rows", "route.plane_rows", "search.pair_overflow_rows")
+    assert {n: counters.get(n, 0) for n in names} == {n: ref_counters.get(n, 0) for n in names}
+    assert counters.get("search.pair_overflow_rows", 0) == 2 * n_segments
+    assert counters.get("route.pair_rows", 0) == n_segments  # the AND row with "filler"
     assert_batches_strict(got, want)
     flat, _ = _serve(monkeypatch, leaves, rows, 8000, pair="0")
     assert got == flat
@@ -180,7 +192,7 @@ def _tables(searcher, rows):
     rqs = [p.rq for p in plans]
     doc_freqs, stats = searcher._gather_stats(rqs, plans)
     b = len(rqs)
-    weight, occur, n_req, min_sh = flat_tables.build_clause_tables(
+    weight, occur, n_req, min_sh, _ma, _bo = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
     )
     leaf = searcher.reader.leaves[0]

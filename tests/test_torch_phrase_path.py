@@ -199,7 +199,7 @@ def _phrase_rows():
         "sloppy": (T.PhraseQuery("body", ["quick", "fox", "dog"], slop=32), None),
         "should": (should, None),
         "eight": (T.PhraseQuery("body", ["the"] * 8), None),
-        "mixed": (mixed, "item 8"),
+        "mixed": (mixed, "mixed"),
         "filter": (filt, "item 9"),
         "gapped": (T.PhraseQuery("body", ["quick", "fox"], positions=[0, 2]), "item 9"),
         "nine": (T.PhraseQuery("body", ["the"] * 9), "item 9"),
@@ -212,14 +212,24 @@ def test_phrase_routing_agrees_with_unported_reason(name):
     """A row with phrases takes the phrase route exactly when
     unported_reason lets it through; the rest raise, naming their item."""
     q, item = _phrase_rows()[name]
+    packed = _pack(_texts(n=50))
     searcher = T.IndexSearcher(
-        IndexReader([SegmentSnapshot("s0", packed_from_reference(_pack(_texts(n=50))))]),
-        device="cpu",
+        IndexReader([SegmentSnapshot("s0", packed_from_reference(packed))]), device="cpu",
     )
     rq = q.rewrite()
     assert searcher._phrase_device_eligible(rq) == (item is None)
+    assert searcher._mixed_device_eligible(rq) == (item == "mixed")
     why = unported_reason(rq)
-    if item is None:
+    if item == "mixed":  # term clauses plus one exact phrase: served, as the reference does
+        assert why is None
+        ref = R.IndexSearcher(RefReader([RefSnapshot("s0", packed)]))
+        ref_q = R.BooleanQuery()
+        ref_q.must(R.PhraseQuery("body", ["quick", "fox"]))
+        ref_q.should(R.TermQuery(R.Term("body", "dog")))
+        METRICS.reset()
+        assert_batches_strict([searcher.search(q, k=K_ALL)], [ref.search(ref_q, k=K_ALL)])
+        assert METRICS.snapshot()["counters"].get("route.mixed", 0) == 1
+    elif item is None:
         assert why is None
         searcher.search(q, k=5)
     else:

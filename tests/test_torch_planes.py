@@ -102,7 +102,7 @@ def _assert_route_agrees(got, flat, rows):
 def test_planes_match_reference(index, monkeypatch):
     leaves, rows, msm, want = index
     got, counters = _serve(monkeypatch, leaves, rows, msm, K_ALL)
-    assert counters.get("route.plane_rows", 0) == len(rows)
+    assert counters.get("route.plane_rows", 0) == len(rows) * len(leaves)  # a leaf call
     assert counters.get("route.flat", 0) == 0
     assert max(td.total_hits for td in want) < K_ALL
     assert_batches_strict(got, want)
@@ -116,7 +116,7 @@ def test_planes_truncated_lists(index, k, monkeypatch):
     leaves, rows, msm, _want = index
     full, _ = _serve(monkeypatch, leaves, rows, msm, K_ALL)
     got, counters = _serve(monkeypatch, leaves, rows, msm, k)
-    assert counters.get("route.plane_rows", 0) == len(rows)
+    assert counters.get("route.plane_rows", 0) == len(rows) * len(leaves)
     for g, f in zip(got, full):
         assert g.total_hits == f.total_hits
         assert g.score_docs == f.score_docs[:k]
@@ -162,7 +162,7 @@ def _plane_tables(searcher, rows, msm):
     doc_freqs, stats = searcher._gather_stats(rqs, plans)
     b = len(rqs)
     t = max(len(rq.all_slots()) for rq in rqs)
-    weight, occur, n_req, min_sh = flat_tables.build_clause_tables(
+    weight, occur, n_req, min_sh, _ma, _bo = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, b, t, plans=plans
     )
     leaf = searcher.reader.leaves[0]

@@ -111,12 +111,12 @@ def index(request):
             device="cpu",
         )
 
-    return port, specs, want, want_single
+    return port, specs, want, want_single, ref
 
 
 @pytest.mark.parametrize("strategy", ["auto", "dense", "candidate"])
 def test_slice_matches_reference(index, strategy, monkeypatch):
-    port, specs, want, _ = index
+    port, specs, want, *_ = index
     monkeypatch.setenv("RUCENE_STRATEGY", strategy)
     METRICS.reset()
     searcher = port()
@@ -135,49 +135,65 @@ def test_slice_matches_reference(index, strategy, monkeypatch):
 
 
 def test_search_and_async_agree(index):
-    port, specs, want, _ = index
+    port, specs, want, *_ = index
     s = port()
     collect = s.search_batch_async([_query(T, x) for x in specs[:8]], k=K_ALL)
     assert_batches_strict(collect(), want[:8])
     assert_batches_strict([s.search(_query(T, specs[0]), k=K_ALL)], want[:1])
 
 
-def _unported():
-    nested = T.BooleanQuery()
-    inner = T.BooleanQuery()
-    inner.should(T.TermQuery(T.Term("body", "fox")))
-    inner.should(T.TermQuery(T.Term("body", "dog")))
+def _unported(pkg):
+    """Rows beyond plain term / boolean rows, each with the ROADMAP item
+    that ports it, or None for a kind the port now serves."""
+    nested = pkg.BooleanQuery()
+    inner = pkg.BooleanQuery()
+    inner.should(pkg.TermQuery(pkg.Term("body", "fox")))
+    inner.should(pkg.TermQuery(pkg.Term("body", "dog")))
     nested.must(inner)
-    nested.must(T.TermQuery(T.Term("body", "the")))
-    mixed_phrase = T.BooleanQuery()
-    mixed_phrase.must(T.PhraseQuery("body", ["quick", "fox"]))
-    mixed_phrase.should(T.TermQuery(T.Term("body", "dog")))
+    nested.must(pkg.TermQuery(pkg.Term("body", "the")))
+    mixed_phrase = pkg.BooleanQuery()
+    mixed_phrase.must(pkg.PhraseQuery("body", ["quick", "fox"]))
+    mixed_phrase.should(pkg.TermQuery(pkg.Term("body", "dog")))
     return {
-        "mixed_phrase": mixed_phrase,
-        "range": T.PointRangeQuery("n", 1, 5),
-        "exists": T.ExistsQuery("body"),
-        "match_all": T.MatchAllDocsQuery(),
-        "dismax": T.DisjunctionMaxQuery(
-            [T.TermQuery(T.Term("body", "fox")), T.TermQuery(T.Term("body", "dog"))],
+        "mixed_phrase": (mixed_phrase, None),
+        "range": (pkg.PointRangeQuery("n", 1, 5), "item 2"),
+        "exists": (pkg.ExistsQuery("body"), "item 2"),
+        "match_all": (pkg.MatchAllDocsQuery(), None),
+        "dismax": (pkg.DisjunctionMaxQuery(
+            [pkg.TermQuery(pkg.Term("body", "fox")), pkg.TermQuery(pkg.Term("body", "dog"))],
             tie_breaker=0.1,
-        ),
-        "const": T.ConstantScoreQuery(T.TermQuery(T.Term("body", "fox")), 2.0),
-        "group": nested,
+        ), None),
+        "const": (pkg.ConstantScoreQuery(pkg.TermQuery(pkg.Term("body", "fox")), 2.0), None),
+        "group": (nested, "item 9"),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_unported()))
+@pytest.mark.parametrize("name", sorted(_unported(T)))
 def test_unported_rows_raise(index, name):
-    port, _specs, _want, _ = index
-    q = _unported()[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port().search_batch([T.TermQuery(T.Term("body", "fox")), q], k=5)
+    """Each kind beside a term row: the kinds this slice serves match the
+    reference (complete lists, and a truncated list is the complete one's
+    head); the rest raise naming their ROADMAP item."""
+    port, *_, ref = index
+    q, item = _unported(T)[name]
+    rows = [T.TermQuery(T.Term("body", "fox")), q]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            port().search_batch(rows, k=5)
+        return
+    ref_rows = [R.TermQuery(R.Term("body", "fox")), _unported(R)[name][0]]
+    want = ref.search_batch(ref_rows, k=K_ALL, prune=False)
+    searcher = port()
+    got = searcher.search_batch(rows, k=K_ALL)
+    assert_batches_strict(got, want)
+    for h, full in zip(searcher.search_batch(rows, k=5), got):
+        assert h.total_hits == full.total_hits
+        assert h.score_docs == full.score_docs[:5]
 
 
 def test_packed_matches_reference_and_decoded(index, monkeypatch):
     """RUCENE_DECODED=0: no decoded planes, hits match the reference, and
     equal the port's decoded run bit for bit (complete and truncated)."""
-    port, specs, want, _ = index
+    port, specs, want, *_ = index
     rows = [_query(T, s) for s in specs]
     monkeypatch.setenv("RUCENE_DECODED", "0")
     packed = port()
@@ -194,7 +210,7 @@ def test_packed_matches_reference_and_decoded(index, monkeypatch):
 def test_forced_dedup_on_decoded_is_bit_identical(index, monkeypatch):
     """RUCENE_DEDUP=1 attaches the decode-dedup tables on decoded segments
     too (off by default there): the hits stay bit-identical."""
-    port, specs, want, _ = index
+    port, specs, want, *_ = index
     rows = [_query(T, s) for s in specs]
     monkeypatch.setenv("RUCENE_DECODED", "1")
     METRICS.reset()
@@ -214,7 +230,7 @@ def test_routes_by_row_class(index, decoded, monkeypatch):
     has deletes: then those rows stay generic. On decoded leaves the
     two-term AND / OR rows take the pair route. Hits match the
     reference."""
-    port, specs, want, want_single = index
+    port, specs, want, want_single, _ref = index
     monkeypatch.setenv("RUCENE_DECODED", decoded)
     monkeypatch.setattr(searcher_mod, "SPLIT_MIN_DOCS", 0)
     searcher = port()
@@ -230,5 +246,6 @@ def test_routes_by_row_class(index, decoded, monkeypatch):
     n_single = 0 if deletes else n_term + len(singles)
     n_pair = sum(occ in ("SS", "MM") for occ, _, _ in specs) if decoded == "1" else 0
     assert counters.get("route.single", 0) == n_single
-    assert counters.get("route.pair_rows", 0) == n_pair
+    # pair rows count per leaf call, as the reference counts them
+    assert counters.get("route.pair_rows", 0) == n_pair * len(searcher.reader.leaves)
     assert counters.get("route.flat", 0) == len(specs) + len(singles) - n_single - n_pair

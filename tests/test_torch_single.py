@@ -66,7 +66,7 @@ def _tables(packed, decoded, monkeypatch):
     rqs = [p.rq for p in plans]
     doc_freqs, stats = searcher._gather_stats(rqs, plans)
     b = len(rqs)
-    weight, occur, n_req, min_sh = flat_tables.build_clause_tables(
+    weight, occur, n_req, min_sh, _ma, _bo = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, b, 1
     )
     leaf = searcher.reader.leaves[0]
@@ -201,7 +201,7 @@ def test_dedupe_fid_is_every_items_fid(monkeypatch):
     plans = [s._plan_for(q) for q in q_rows]
     rqs = [p.rq for p in plans]
     doc_freqs, stats = s._gather_stats(rqs, plans)
-    weight, occur, _, _ = flat_tables.build_clause_tables(rqs, s.similarity, doc_freqs, stats, 24, 2)
+    weight, occur, *_ = flat_tables.build_clause_tables(rqs, s.similarity, doc_freqs, stats, 24, 2)
     bs, bc, fid = flat_tables.build_leaf_tables(s.reader.leaves[0], rqs, 24, 2)
     assert len(set(fid.ravel().tolist())) == 2
     work = flat_tables.build_flat_work(bs, bc, weight, fid, occur)

@@ -47,39 +47,6 @@ def _load_smoke():
     return mod
 
 
-def _profile_passes(torch, smoke, searcher, queries, passes: int = 3, top: int = 10):
-    """(kernel ms per pass, device busy share, the ``top`` kernels by device
-    time as [name, ms per pass]) over pipelined passes."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pending = []
-        for _ in range(passes):
-            for i in range(0, len(queries), smoke.BATCH):
-                pending.append(searcher.search_batch_async(queries[i:i + smoke.BATCH], k=smoke.K))
-                while len(pending) >= 3:
-                    pending.pop(0)()
-        while pending:
-            pending.pop(0)()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total = sum(b - a for a, b in spans)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name: dict = {}
-    for e in events:
-        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us()
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return total / 1e3 / passes, busy / wall_us, [[n, us / 1e3 / passes] for n, us in ranked]
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
@@ -138,7 +105,7 @@ def main() -> int:
         METRICS.reset()
         qps, _ = smoke.serve(s, queries)
         routes = {k: v for k, v in METRICS.snapshot()["counters"].items() if k.startswith("route.")}
-        ms, busy, top = _profile_passes(torch, smoke, s, queries)
+        ms, busy, top = smoke.profile_passes(s, queries)
         out[name] = {"qps": qps, "kernel_ms_per_pass": ms, "busy_share": busy,
                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                      "routes": routes, "top_kernels_ms_per_pass": top}

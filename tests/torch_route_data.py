@@ -81,10 +81,11 @@ def query(pkg, row, msm: int = 0):
     return q
 
 
-def ref_search(leaves, rows, k: int, msm=None):
+def ref_search(leaves, rows, k: int, msm=None, env=None):
     """The reference's TopDocs for ``rows`` (its default routing, no
-    pruning)."""
+    pruning; ``env`` sets route variables for this search alone)."""
     saved = {v: os.environ.pop(v) for v in ROUTE_ENV if v in os.environ}
+    os.environ.update(env or {})
     try:
         s = R.IndexSearcher(
             RefReader([RefSnapshot(f"s{i}", p, live=lv) for i, (p, lv) in enumerate(leaves)])
@@ -92,6 +93,8 @@ def ref_search(leaves, rows, k: int, msm=None):
         qs = [query(R, r, 0 if msm is None else msm[i]) for i, r in enumerate(rows)]
         return s.search_batch(qs, k=k, prune=False)
     finally:
+        for v in env or {}:
+            os.environ.pop(v, None)
         os.environ.update(saved)
 
 
