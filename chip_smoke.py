@@ -7,8 +7,9 @@ Builds the CUDA kernels and the native library from this checkout, then:
   2. builds the bench's Zipf corpus (bench.py's generator and seed,
      reimplemented here so nothing imports rucene_tpu or jax), its query
      mix with phrase rows (bigrams from the first 5,000 docs, as bench.py
-     draws them) and the same mix without them, packs the corpus and opens
-     it with the port's IndexReader;
+     draws them) and the same mix without them, packs the corpus (each doc
+     also with an IntPoint ``ts`` and, one in 4, a StringField ``tag``,
+     pack_corpus) and opens it with the port's IndexReader;
   3. builds the decoded residency through the decode kernel and holds it
      against the plain twin on the CPU, every block bit for bit; logs the
      dense tf planes the residency build scattered (count, bytes, df_min)
@@ -70,16 +71,34 @@ Builds the CUDA kernels and the native library from this checkout, then:
      executor branches; the packed answers equal the decoded ones bit for
      bit, 16 mixed and 16 score-combine rows equal the CPU run; each
      stage's kernel time and device busy share under torch.profiler, and
-     the peak of one 64-row mixed chunk.
+     the peak of one 64-row mixed chunk;
+ 11. filter rows and host rows on both readers (serve_filter_rows; the
+     rows of filter_queries, seed 23, after Lucene's nightly benchmark's
+     IntNRQ / Prefix3 tasks beside term queries): stage A, 256 filter rows
+     in one batch (term MUST or two terms SHOULD beside a ``ts`` window of
+     1-90 days, a term beside a tag prefix or ExistsQuery(tag), windows
+     alone, and 32 mixed rows with a window); stage B, its 96 term-MUST
+     rows alone; stage C, 16 host rows (nested groups, 9 ranges, match-all
+     with a window, dismax over booleans). Gates: every non-mixed row of A
+     and B on route.device and every mixed row on route.mixed, no host row
+     and no spill there; the dense branch in A and the candidate branch in
+     B; K3 launched by A on both readers and K2 on the packed one; no
+     filter plane built by a timed pass; packed equal to decoded bit for
+     bit; 16 rows of A and the 16 host rows equal to the CPU run; route.host
+     exactly 16 in C (and 0 in the bench mix). Logs each stage's QPS, A's
+     kernel time and busy share, the dense batch's peak a (row, doc), the
+     filter planes cached and the host stage's seconds.
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
 L2), enqueued behind a sleep so that host launch time is not counted
 (cuda_ms). Any failure raises. The last three lines are the kernels'
 JSON record (with qps, packed_qps, qps_no_phrase, tf_plane_mib,
-pair_rows, plane_rows and phase 10's mixed_qps, mixed_packed_qps,
-extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc)), the
-card's name and power limit, and the device line.
+pair_rows, plane_rows, phase 10's mixed_qps, mixed_packed_qps,
+extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc), and
+phase 11's filter_qps, filter_packed_qps, filter_kernel_ms_busy,
+filter_planes and host_rows), the card's name and power limit, and the
+device line.
 """
 
 from __future__ import annotations
@@ -274,16 +293,104 @@ def extras_queries(vocab, probs, seed: int = 19):
     return rows, head
 
 
-def pack_corpus(texts):
-    from rucene_tpu_torch import Document, TextField
+YEAR_S = 365 * 86400  # the ts field holds a second of one year
+MONTH_STARTS = np.cumsum([0, 31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30]) * 86400
+
+
+def filter_queries(phrase_texts, vocab, probs, seed: int = 23):
+    """Phase 11's rows: (stage A: 256 filter rows, the indices of its 96
+    term-MUST rows (stage B), stage C: 16 host rows). A ``ts`` window is 1,
+    7, 30 or 90 days from one of 12 month starts; term-MUST rows draw their
+    term from ranks 200-5000 of the bench's band, the rest from 10-5000.
+    Stage A, in blocks: 64 rows term MUST + window FILTER; 64 rows two
+    terms SHOULD + window FILTER; 32 rows term MUST + PrefixQuery(tag,
+    c0-c9 or c00-c99) FILTER; 32 rows term SHOULD + ExistsQuery(tag) MUST;
+    32 windows alone; 32 mixed rows, an exact bigram from phrase_texts MUST
+    + window FILTER + a term SHOULD (a mixed row holds a term clause; a
+    phrase and a window alone is a host row, as in the reference). Stage C,
+    4 of each: a nested pure-SHOULD group, 9
+    nested windows, match-all + window FILTER, dismax over two-clause
+    booleans."""
+    from rucene_tpu_torch import (
+        BooleanQuery,
+        DisjunctionMaxQuery,
+        ExistsQuery,
+        MatchAllDocsQuery,
+        PhraseQuery,
+        PointRangeQuery,
+        PrefixQuery,
+        Term,
+        TermQuery,
+    )
+
+    rng = np.random.default_rng(seed)
+    band = band_sampler(vocab, probs, rng)
+    sparse = band_sampler(vocab, probs, rng, lo=200)
+
+    def t(w):
+        return TermQuery(Term("body", w))
+
+    def window(days=None, start=None):
+        start = int(MONTH_STARTS[rng.integers(12)]) if start is None else start
+        days = int(rng.choice([1, 7, 30, 90])) if days is None else days
+        return PointRangeQuery("ts", start, start + days * 86400 - 1)
+
+    def row(*clauses):
+        q = BooleanQuery()
+        for occ, sub in clauses:
+            getattr(q, occ)(sub)
+        return q
+
+    def prefix():
+        return PrefixQuery("tag", f"c{rng.integers(10)}" if rng.random() < 0.5 else f"c{rng.integers(100):02d}")
+
+    bigrams = sample_bigrams(phrase_texts, 32, seed=seed)
+    stage_a = [row(("must", t(sparse())), ("filter", window())) for _ in range(64)]
+    stage_a += [row(("should", t(band())), ("should", t(band())), ("filter", window())) for _ in range(64)]
+    stage_a += [row(("must", t(sparse())), ("filter", prefix())) for _ in range(32)]
+    stage_a += [row(("should", t(band())), ("must", ExistsQuery("tag"))) for _ in range(32)]
+    stage_a += [window() for _ in range(32)]
+    stage_a += [row(("must", PhraseQuery("body", list(bigrams[i % len(bigrams)]))),
+                    ("should", t(band())), ("filter", window())) for i in range(32)]
+    stage_b = list(range(64)) + list(range(128, 160))
+    host = []
+    for _ in range(4):
+        host.append(row(("must", row(("should", t(band())), ("should", t(band())))), ("must", t(band()))))
+    for _ in range(4):
+        start = int(MONTH_STARTS[rng.integers(9)])
+        host.append(row(("must", t(band())),
+                        *[("filter", window(90, start + d * 86400)) for d in range(9)]))
+    for _ in range(4):
+        host.append(row(("must", MatchAllDocsQuery(boost=2.0)), ("filter", window())))
+    for _ in range(4):
+        host.append(DisjunctionMaxQuery([
+            row(("should", t(band())), ("should", t(band()))),
+            row(("must", t(band())), ("should", t(band()))),
+        ], tie_breaker=0.3))
+    return stage_a, stage_b, host
+
+
+def pack_corpus(texts, seed: int = 23):
+    """The packed segment of ``texts`` in ``body``, each doc with an
+    IntPoint ``ts`` (a second of one year, uniform) and, on one doc in 4, a
+    StringField ``tag`` (c000-c999, uniform), drawn from ``seed``: the
+    time and category a content search filters by."""
+    from rucene_tpu_torch import Document, IntPoint, StringField, TextField
     from rucene_tpu_torch.codec.postings import pack_segment
     from rucene_tpu_torch.index.memory import SegmentBuffer
 
+    rng = np.random.default_rng(seed)
+    ts = rng.integers(0, YEAR_S, len(texts)).tolist()
+    tag = rng.integers(0, 1000, len(texts)).tolist()
+    tagged = (rng.random(len(texts)) < 0.25).tolist()
     buf = SegmentBuffer()
     docs = []
-    for t in texts:
+    for i, t in enumerate(texts):
         d = Document()
         d.add(TextField("body", t))
+        d.add(IntPoint("ts", ts[i]))
+        if tagged[i]:
+            d.add(StringField("tag", f"c{tag[i]:03d}"))
         docs.append(d)
     buf.add_documents_bulk(docs)
     del docs
@@ -382,11 +489,14 @@ def serve(searcher, queries, depth: int = 3, min_s: float = 5.0, max_reps: int =
 
 def phrase_gates(counters, n_rows: int, n_phrase: int, n_queries: int, full: bool, where: str):
     """The phrase gates over one serving stage's counter deltas: every
-    phrase row took the phrase route; at full size both device phrase
-    routes were taken and no phrase row went to the scalar engine or the
-    host."""
+    phrase row took the phrase route and no row the host route; at full
+    size both device phrase routes were taken and no phrase row went to
+    the scalar engine or the host."""
     rows = counters.get("route.device", 0) + counters.get("route.phrase", 0)
     passes = rows // n_queries
+    if counters.get("route.host", 0) or counters.get("route.mixed", 0):
+        raise AssertionError(f"{where}: {counters.get('route.host', 0)} host and "
+                             f"{counters.get('route.mixed', 0)} mixed rows in the bench mix")
     if rows != passes * n_queries or counters.get("route.phrase", 0) != passes * n_phrase:
         raise AssertionError(f"{where}: {counters.get('route.phrase', 0)} phrase-route rows "
                              f"over {rows} rows, expected {n_phrase} in every {n_queries}")
@@ -423,6 +533,8 @@ def route_gates(counters, n_two_term: int, n_queries: int, split: bool, where: s
     over = counters.get("search.pair_overflow_rows", 0)
     log(f"{where} two-term rows: route.pair_rows={pair} route.plane_rows={plane} "
         f"search.pair_overflow_rows={over} over {passes} passes")
+    if counters.get("route.host", 0):
+        raise AssertionError(f"{where}: {counters['route.host']} rows took the host route")
     if not split:
         return pair, plane
     if pair + plane + over != passes * n_two_term:
@@ -636,6 +748,134 @@ def serve_combine_rows(searchers, cpu_searcher, mixed_q, extras_q, head_q, card,
     return out
 
 
+def plane_cache_figures() -> tuple[int, float]:
+    """(filter planes, MiB) held in the device plane cache, stacks aside."""
+    from rucene_tpu_torch.search.cache import DEVICE_PLANE_CACHE
+
+    planes = [v for key, (_ref, v) in DEVICE_PLANE_CACHE._entries.items() if key[2][0] == "plane"]
+    return len(planes), sum(p.numel() * p.element_size() for p in planes) / 2**20
+
+
+def serve_filter_rows(searchers, cpu_searcher, stage_a, stage_b, host_q, card, full):
+    """Phase 11: the filter rows on each reader of ``searchers`` (the
+    packed one with the plain decode twins refused), in three stages, each
+    warmed once, then its counts set to 0, served and read. Stage A: the
+    256 rows, pipelined passes; stage B: its 96 term-MUST rows alone;
+    stage C: the 16 host rows, one batch. Gates: in A and B every non-mixed
+    row on route.device and every mixed row on route.mixed, route.host and
+    search.mixed_host_spill 0; the dense branch taken in A and (at full
+    size) the candidate branch in B; K3 launched by A on both readers and
+    K2 on the packed one; the timed passes build no filter plane (the
+    device plane cache's misses do not grow); packed answers equal the
+    decoded ones bit for bit; 16 rows of A (every kind) and all of C equal
+    the CPU run; route.host exactly 16 in C. Returns QPS, launches,
+    profiles, the dense batch's peak and the host stage's seconds."""
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.search.cache import DEVICE_PLANE_CACHE
+    from rucene_tpu_torch.util.metrics import METRICS
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
+
+    b_q = [stage_a[i] for i in stage_b]
+    n_mixed = 32
+    dense_rows = stage_a[:-n_mixed]
+    out = {"launches": {}, "results": {}}
+    for name, searcher in searchers.items():
+        guard = plain_decode_refused() if name == "packed" else contextlib.nullcontext()
+        with guard:
+            searcher.search_batch(stage_a, k=K)  # warm: filter and phrase planes built here
+            searcher.search_batch(b_q, k=K)
+            METRICS.reset()
+            misses = DEVICE_PLANE_CACHE.misses
+            qps, a_res = serve(searcher, stage_a)
+            a_cnt = METRICS.snapshot()["counters"]
+            a_misses = DEVICE_PLANE_CACHE.misses - misses
+            METRICS.reset()
+            misses = DEVICE_PLANE_CACHE.misses
+            b_qps, b_res = serve(searcher, b_q)
+            b_cnt = METRICS.snapshot()["counters"]
+            b_misses = DEVICE_PLANE_CACHE.misses - misses
+            METRICS.reset()
+            t = time.perf_counter()
+            c_res = searcher.search_batch(host_q, k=K)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t
+            c_cnt = METRICS.snapshot()["counters"]
+        for stage, cnt, rows, mixed in (("A", a_cnt, len(stage_a), n_mixed), ("B", b_cnt, len(b_q), 0)):
+            passes = (cnt.get("route.device", 0) + cnt.get("route.mixed", 0)) // rows
+            if (passes < 1 or cnt.get("route.device", 0) != passes * (rows - mixed)
+                    or cnt.get("route.mixed", 0) != passes * mixed):
+                raise AssertionError(f"{name} stage {stage}: routes {cnt}, expected {rows - mixed} "
+                                     f"device and {mixed} mixed rows a pass")
+            for bad in ("route.host", "route.phrase", "search.mixed_host_spill"):
+                if cnt.get(bad, 0):
+                    raise AssertionError(f"{name} stage {stage}: {bad}={cnt[bad]}")
+        if a_misses or b_misses:
+            raise AssertionError(f"{name}: the timed passes built {a_misses} + {b_misses} filter "
+                                 "planes or stacks")
+        if a_cnt.get("search.strategy.dense", 0) <= 0:
+            raise AssertionError(f"{name} stage A never took the dense branch")
+        if full and b_cnt.get("search.strategy.candidate", 0) <= 0:
+            raise AssertionError(f"{name} stage B never took the candidate branch")
+        k3 = a_cnt.get(cuda_combine.LAUNCH_COUNTER, 0)
+        k2 = a_cnt.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
+        if k3 <= 0:
+            raise AssertionError(f"{name}: stage A never launched the combine kernel")
+        if name == "packed" and (k2 <= 0 or b_cnt.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0) <= 0):
+            raise AssertionError("packed: the filter rows never launched the scoring decode")
+        if c_cnt.get("route.host", 0) != len(host_q) or c_cnt.get("route.device", 0):
+            raise AssertionError(f"{name} stage C: routes {c_cnt}, expected {len(host_q)} host rows")
+        log(f"{name} filter rows: stage A {qps:.1f} QPS ({len(stage_a)} rows, k={K}) on {card}; "
+            f"strategy dense={a_cnt.get('search.strategy.dense', 0)} candidate="
+            f"{a_cnt.get('search.strategy.candidate', 0)}, combine launches {k3}, scoring decode "
+            f"launches {k2}; stage B {b_qps:.1f} QPS ({len(b_q)} rows), strategy "
+            f"candidate={b_cnt.get('search.strategy.candidate', 0)} "
+            f"dense={b_cnt.get('search.strategy.dense', 0)}; stage C: {len(host_q)} host rows "
+            f"in {host_s:.3f}s")
+        for kname, counter in (("decode_blocks", cuda_decode.LAUNCH_COUNTER),
+                               ("decode_score_blocks", cuda_decode.SCORE_LAUNCH_COUNTER),
+                               ("combine_lanes", cuda_combine.LAUNCH_COUNTER)):
+            out["launches"][kname] = out["launches"].get(kname, 0) + sum(
+                c.get(counter, 0) for c in (a_cnt, b_cnt, c_cnt)
+            )
+        out[f"{name}_qps"] = qps
+        out[f"{name}_host_s"] = host_s
+        out["results"][name] = (a_res, b_res, c_res)
+        ms, busy, top = profile_passes(searcher, stage_a)
+        out[f"{name}_profile"] = (ms, busy)
+        log(f"{name} stage A under torch.profiler: {ms:.2f} ms of kernels a pass of "
+            f"{len(stage_a)} rows, device busy {100 * busy:.1f}%; top kernels (ms a pass): "
+            + "; ".join(f"{n} {t:.2f}" for n, t in top[:6]))
+
+    dec, pkd = out["results"]["decoded"], out["results"]["packed"]
+    for stage, a, b in zip("ABC", dec, pkd):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x.total_hits != y.total_hits or x.score_docs != y.score_docs:
+                raise AssertionError(f"packed stage {stage} row {i} differs from the decoded run")
+    log(f"packed answers equal the decoded ones bit for bit ({len(dec[0])} + {len(dec[1])} + "
+        f"{len(dec[2])} rows)")
+
+    peak, ms, moved = route_peak(searchers["decoded"], dense_rows)
+    mdp = searchers["decoded"].reader.leaves[0].device.max_doc_padded
+    out["dense_bytes_per_row_doc"] = peak / (len(dense_rows) * mdp)
+    out["planes"], plane_mib = plane_cache_figures()
+    log(f"stage A's {len(dense_rows)} dense rows served alone (decoded): peak {peak / 2**20:.1f} MiB "
+        f"above the resident set ({out['dense_bytes_per_row_doc']:.1f} bytes a (row, doc)), "
+        f"{ms:.3f} ms between events; routes {moved}; {out['planes']} filter planes cached "
+        f"({plane_mib:.1f} MiB)")
+
+    t = time.perf_counter()
+    a_idx = [0, 21, 63, 64, 100, 127, 128, 143, 160, 191, 192, 210, 224, 240, 241, 255]
+    for i, want in zip(a_idx, cpu_searcher.search_batch([stage_a[i] for i in a_idx], k=K)):
+        assert_topdocs_strict(dec[0][i], want)
+    for i, want in enumerate(cpu_searcher.search_batch(host_q, k=K)):
+        assert_topdocs_strict(dec[2][i], want)
+    log(f"16 stage-A rows (every kind) and {len(host_q)} host rows match the CPU run hit for hit "
+        f"({time.perf_counter() - t:.1f}s)")
+    del out["results"]
+    return out
+
+
 def single_k2_call(searcher, batch):
     """The scoring decode call the searcher makes for ``batch``'s single-term
     rows on its packed leaf: (data, off, dbits, fbits, base, count, fid,
@@ -821,14 +1061,17 @@ def main() -> int:
     n_phrase = sum(type(q).__name__ == "PhraseQuery" for q in queries)
     mixed_q = mixed_queries(texts[:5000], vocab, probs)  # phase 10's rows
     extras_q, head_extras_q = extras_queries(vocab, probs)
+    filter_a, filter_b, host_q = filter_queries(texts[:5000], vocab, probs)  # phase 11's rows
     packed = pack_corpus(texts)
     del texts
     from rucene_tpu_torch.util.packing import EF_TAG
 
     n_ef = int((packed.blk_doc_bits >= EF_TAG).sum())
+    tag = packed.fields["tag"]
     log(
-        f"packed {n_docs} docs in {time.perf_counter() - t:.1f}s: "
-        f"{packed.num_blocks} blocks ({n_ef} Elias-Fano), {len(packed.data)} words"
+        f"packed {n_docs} docs in {time.perf_counter() - t:.1f}s (corpus, queries and packing): "
+        f"{packed.num_blocks} blocks ({n_ef} Elias-Fano, {int(tag.block_count.sum())} of the "
+        f"{len(tag.terms)} tag terms), {len(packed.data)} words, {len(packed.points['ts'][0])} ts points"
     )
     reader = IndexReader([SegmentSnapshot("bench", packed)])
     searcher = IndexSearcher(reader, device=dev)
@@ -1045,24 +1288,33 @@ def main() -> int:
         {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, mixed_q, extras_q,
         head_extras_q, card, full,
     )
+
+    # 11. filter rows and host rows on both readers
+    p11 = serve_filter_rows(
+        {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, filter_a, filter_b,
+        host_q, card, full,
+    )
     del cpu_reader, cpu_searcher
 
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
-         "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"],
+         "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"]
+         + p11["launches"]["decode_blocks"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
-         "launches": k2_launches + p10["launches"]["decode_score_blocks"],
+         "launches": k2_launches + p10["launches"]["decode_score_blocks"]
+         + p11["launches"]["decode_score_blocks"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
-         "launches": k3_launches + p10["launches"]["combine_lanes"], "max_abs_err": k3_err,
+         "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"],
+         "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
     ], "qps": qps, "packed_qps": packed_qps, "qps_no_phrase": qps_no_phrase,
@@ -1074,7 +1326,12 @@ def main() -> int:
         "extras_qps": p10["decoded_extras_qps"], "extras_packed_qps": p10["packed_extras_qps"],
         "mixed_chunk_bytes_per_row_doc": p10["mixed_chunk_bytes_per_row_doc"],
         "mixed_kernel_ms_busy": [p10["decoded_mixed_profile"], p10["packed_mixed_profile"]],
-        "extras_kernel_ms_busy": [p10["decoded_extras_profile"], p10["packed_extras_profile"]]}))
+        "extras_kernel_ms_busy": [p10["decoded_extras_profile"], p10["packed_extras_profile"]],
+        "filter_qps": p11["decoded_qps"], "filter_packed_qps": p11["packed_qps"],
+        "filter_kernel_ms_busy": [p11["decoded_profile"], p11["packed_profile"]],
+        "filter_dense_bytes_per_row_doc": p11["dense_bytes_per_row_doc"],
+        "filter_planes": p11["planes"], "host_rows": len(host_q),
+        "host_s": [p11["decoded_host_s"], p11["packed_host_s"]]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

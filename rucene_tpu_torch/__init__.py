@@ -1,11 +1,12 @@
 """rucene_tpu_torch — the PyTorch/CUDA port of rucene_tpu, for an NVIDIA H100.
 
-This slice serves BM25 term and boolean query batches (SHOULD / MUST /
-FILTER / MUST_NOT, min_should_match) through the generic flat executor,
-with decoded postings resident on the device. The postings decoder and the
-dense combine are CUDA kernels (csrc/); plain PyTorch twins serve CPU
-tensors. Rows outside the slice raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+It serves batches of BM25 queries built from the query classes below:
+term, boolean, phrase, range / exists / prefix filter, dismax,
+constant-score, boosting and match-all rows, with postings resident on the
+device, decoded or packed. Rows the reference answers on its device path
+run on the torch device; the rest run on the numpy host engine, as the
+reference's do (search/searcher.py). The postings decoders and the dense
+combine are CUDA kernels (csrc/); plain PyTorch twins serve CPU tensors.
 
 Imports torch and numpy, never jax. Host-layer modules are copies of their
 rucene_tpu counterparts (same relative path and names), held against them

@@ -40,6 +40,9 @@ Two routes of their own serve plain boolean rows on decoded segments:
   accumulator and no lane sort is needed.
 Neither reaches a Pallas kernel in the reference; both are torch ops.
 
+Range, exists and prefix clauses ride as FilterPlanes: cached per-doc
+bool planes whose constant scores and clause counts fold into the term
+sums (dense accumulators or candidate groups) before the match.
 Score-combine rows (dismax, constant-score, boosting) take the flat
 executor with RowExtras applied to each (row, doc) sum before the match;
 match-all rows take execute_match_all; mixed rows (term clauses plus one
@@ -148,6 +151,56 @@ def _apply_extras(score, counts, max_sc, ex: RowExtras, rows=None):
     return torch.where(per(ex.const_on), per(ex.const_val), score)
 
 
+class FilterPlanes(NamedTuple):
+    """Constant-score doc-set clauses (point ranges, exists, prefixes) as
+    dense per-doc bool planes: one [md] plane per distinct filter of the
+    batch (cached on the device across batches by the searcher,
+    search/filter_path.py). Each row references up to R of them by index,
+    with its own occur encoding and constant score; idx -1 is inert."""
+
+    planes: torch.Tensor  # bool[P, md]
+    idx: torch.Tensor  # i32[B, R] plane per row slot; -1 inert
+    enc: torch.Tensor  # i32[B, R] clause-count encoding (ENC_* units)
+    boost: torch.Tensor  # f32[B, R] constant score (0 for FILTER / MUST_NOT)
+
+
+FOLD_ROWS = 32  # rows per [rows, md] gather when folding planes densely
+
+
+def _apply_planes_dense(acc_score, acc_counts, filters: FilterPlanes):
+    """Fold filter planes into dense [B, md] accumulators, in place: each
+    referenced plane adds its occur encoding and constant score wherever
+    set, slot by slot after the term sums (host_engine's range fold).
+    Rows go FOLD_ROWS at a time, so a slot's gathered planes and their
+    addend take FOLD_ROWS * md * 5 bytes, not B * md * 5."""
+    b = acc_score.shape[0]
+    p = filters.planes.shape[0]
+    for r in range(filters.idx.shape[1]):  # R <= 8
+        for lo in range(0, b, FOLD_ROWS):
+            rows = slice(lo, lo + FOLD_ROWS)
+            pidx = filters.idx[rows, r]
+            on = filters.planes[pidx.clamp(0, p - 1).long()] & (pidx >= 0)[:, None]
+            acc_score[rows] += torch.where(on, filters.boost[rows, r, None], 0.0)
+            acc_counts[rows] += torch.where(on, filters.enc[rows, r, None], 0)
+    return acc_score, acc_counts
+
+
+def _apply_planes_lanes(sum_sc, sum_enc, g_row, safe_docs, b: int, filters: FilterPlanes):
+    """Fold filter planes into candidate group totals (one gather a slot):
+    group i of row g_row[i] at doc safe_docs[i]. The caller guarantees
+    candidate completeness (search/filter_path._ranges_complete): every
+    possible match holds a decoded lane, so no match is filter membership
+    alone."""
+    p = filters.planes.shape[0]
+    row = g_row.clamp(0, b - 1).long()
+    for r in range(filters.idx.shape[1]):
+        pidx = filters.idx[row, r]
+        on = (pidx >= 0) & filters.planes[pidx.clamp(0, p - 1).long(), safe_docs]
+        sum_sc = sum_sc + torch.where(on, filters.boost[row, r], 0.0)
+        sum_enc = sum_enc + torch.where(on, filters.enc[row, r], 0)
+    return sum_sc, sum_enc
+
+
 def dense_strategy(b: int, md: int, n_items: int, strategy: str = "auto") -> bool:
     """The reference's shape rule (executor.py:352): dense accumulators when
     ``b * md <= 12 * lanes``; "dense" / "candidate" force a branch."""
@@ -241,6 +294,7 @@ def execute_flat_impl(
     combine: tuple[CombineBatch, ...] | None = None,
     extras: RowExtras | None = None,
     with_dismax: bool = False,
+    filters: FilterPlanes | None = None,
 ):
     """Returns (scores f32[B,k], docs i32[B,k], total_hits i32[B]).
 
@@ -251,7 +305,11 @@ def execute_flat_impl(
     pure_disjunction) applies RowExtras to the combined scores before the
     match; with_dismax (some row has dismax_tie >= 0) also takes the
     member max: a scatter-max into [B, md] in the dense branch, a
-    segmented max over the sorted groups in the candidate branch."""
+    segmented max over the sorted groups in the candidate branch.
+    ``filters`` (never with pure_disjunction) folds the batch's filter
+    planes into the term sums and counts before the extras: into the dense
+    accumulators, or onto the candidate groups, which the caller must make
+    candidate-complete (search/filter_path._ranges_complete)."""
     b = q.n_required.shape[0]
     md = dev.max_doc_padded
     target, sc, valid = decode_score_lanes(dev, q)
@@ -262,6 +320,8 @@ def execute_flat_impl(
         if pure_disjunction:
             match = acc_score > 0.0
         else:
+            if filters is not None:
+                _apply_planes_dense(acc_score, acc_counts, filters)
             if extras is not None:
                 acc_max = None
                 if with_dismax:
@@ -311,6 +371,8 @@ def execute_flat_impl(
             0, gid, lane_enc[perm]
         )
         safe_row = g_row.clamp(max=b - 1)
+        if filters is not None:
+            sum_sc, sum_enc = _apply_planes_lanes(sum_sc, sum_enc, g_row, safe_doc, b, filters)
         if extras is not None:
             max_sc = None
             if with_dismax:
@@ -369,16 +431,19 @@ def execute_match_all(dev: DeviceSegment, boost: torch.Tensor, k: int):
     return top_scores, top_docs, n_live.to(torch.int32).expand(b)
 
 
-def _dense_match(dev: DeviceSegment, q: FlatQueryBatch, combine: tuple[CombineBatch, ...]):
-    """Dense boolean evaluation of q's term clauses: (match bool[B, md],
-    acc_score f32[B, md]). The accumulators come from _combine_dense (the
-    combine kernel plus its scatter residue), the reference's scatter-add
-    sums: counts exactly, and a sum of at most two scoring clauses a
-    (row, doc) in any order."""
+def _dense_match(dev: DeviceSegment, q: FlatQueryBatch, combine: tuple[CombineBatch, ...],
+                 filters: FilterPlanes | None = None):
+    """Dense boolean evaluation of q's term clauses and filter planes:
+    (match bool[B, md], acc_score f32[B, md]). The accumulators come from
+    _combine_dense (the combine kernel plus its scatter residue), the
+    reference's scatter-add sums: counts exactly, and a sum of at most two
+    scoring clauses a (row, doc) in any order; the planes fold in after."""
     b = q.n_required.shape[0]
     md = dev.max_doc_padded
     target, sc, valid = decode_score_lanes(dev, q)
     acc_score, acc_counts = _combine_dense(q, target, sc, valid, b, md, combine)
+    if filters is not None:
+        _apply_planes_dense(acc_score, acc_counts, filters)
     match = _boolean_match(acc_counts, q.n_required[:, None], q.min_should[:, None])
     return match & dev.live[None, :], acc_score
 
@@ -393,9 +458,11 @@ def execute_mixed_planes(
     weights: torch.Tensor,  # f32[B] phrase weight boost * sum(idf) * (k1+1); 0 FILTER
     k: int,
     n_terms: int,
+    filters: FilterPlanes | None = None,  # the rows' range clauses
 ):
-    """Mixed boolean rows (term clauses plus one required exact phrase):
-    the term clauses' dense match and scores (_dense_match), the phrase's
+    """Mixed boolean rows (term clauses and up to 8 range clauses plus one
+    required exact phrase): the dense match and scores of the term clauses
+    and filter planes (_dense_match), the phrase's
     frequency per doc from its position planes (ops/phrase_plane.
     phrase_freqs, the stacked verify), then ``acc + w * pf / (pf +
     denom)`` where the terms match and pf > 0, and the dense top-k. The
@@ -406,7 +473,7 @@ def execute_mixed_planes(
     counts those the terms match: such a row needs the reference's host
     rerun. Returns (scores f32[B,k], docs i32[B,k], hits i32[B], ov_count
     i32[B])."""
-    match_t, acc = _dense_match(dev, q, combine)
+    match_t, acc = _dense_match(dev, q, combine, filters)
     pf, needs_host = phrase_freqs(planes, overflows, dev.live, n_terms)
     ph_score = weights[:, None] * pf / (pf + torch.stack(denoms))
     match = match_t & (pf > 0) & ~needs_host

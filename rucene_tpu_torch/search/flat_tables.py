@@ -4,8 +4,9 @@ rucene_tpu/search/flat_tables.py).
 Host numpy assembly of the per-(query, clause, 128-doc block) work list and
 the dense-combine entry tables and the decode-dedup tables, plus the one
 place executor inputs move to the device (make_flat_batch), and the
-tf-plane executor's dense denominator planes (cval_plane_for). Left out of
-the reference: the W floor of 1024 and the pow2 pads (of the work list
+tf-plane executor's dense denominator planes (cval_plane_for), and the
+filter slot tables of range rows (build_range_filter_tables, without the
+reference's pow2 slot pad). Left out of the reference: the W floor of 1024 and the pow2 pads (of the work list
 and of dedup's distinct-block count, whose floor of 8 is the Pallas
 kernel's item group), which keep XLA shapes reusable, and the TPU gates
 on the combine kernel. On CUDA every dense-branch call goes through it.
@@ -399,6 +400,37 @@ def build_combine_batch(arrays, b: int, blk_first, blk_last, mdp: int, device):
             )
         )
     return tuple(out)
+
+
+def build_range_filter_tables(rqs, b: int):
+    """A batch's range, exists and prefix clauses as distinct filter keys
+    and [b, R] slot tables (plane index, occur encoding, constant score),
+    R the most range clauses of a row. Rows without ranges carry idx -1
+    (inert). Returns (keys: a representative RangeClause per distinct
+    cache_key, idx, enc, boost)."""
+    keys: list = []
+    key_pos: dict[tuple, int] = {}
+    for rq in rqs:
+        for r in rq.ranges:
+            if r.cache_key not in key_pos:
+                key_pos[r.cache_key] = len(keys)
+                keys.append(r)
+    r_slots = max(max((len(rq.ranges) for rq in rqs), default=1), 1)
+    idx = np.full((b, r_slots), -1, np.int32)
+    enc = np.zeros((b, r_slots), np.int32)
+    boost = np.zeros((b, r_slots), np.float32)
+    for i, rq in enumerate(rqs):
+        for j, r in enumerate(rq.ranges):
+            idx[i, j] = key_pos[r.cache_key]
+            if r.occur in (Occur.MUST, Occur.FILTER):
+                enc[i, j] = ENC_REQUIRED
+            elif r.occur == Occur.SHOULD:
+                enc[i, j] = ENC_SHOULD
+            else:
+                enc[i, j] = ENC_NOT
+            if r.occur in (Occur.MUST, Occur.SHOULD):
+                boost[i, j] = np.float32(r.boost)  # constant score
+    return keys, idx, enc, boost
 
 
 def build_leaf_cache(leaf, sim, stats) -> np.ndarray:

@@ -1,10 +1,11 @@
 """Phrase routes for IndexSearcher (counterpart of
 rucene_tpu/search/phrase_path.py): pure phrase rows (one PhraseQuery of
 2-8 terms, MUST or SHOULD, with no other clause) and mixed rows (term
-clauses plus one exact MUST or FILTER phrase, _search_mixed_device: the
-term clauses through the flat work list and the combine kernel, the
-phrase through its position planes, one executor.execute_mixed_planes
-call per arity and chunk of rows).
+clauses and up to 8 range clauses plus one exact MUST or FILTER phrase,
+_search_mixed_device: the term clauses through the flat work list and the
+combine kernel, the ranges through their filter planes
+(search/filter_path.py), the phrase through its position planes, one
+executor.execute_mixed_planes call per arity and chunk of rows).
 
 Three routes per (pure phrase row, leaf):
   1. candidate pipeline (search/phrase_device.py): block selection driven
@@ -16,26 +17,26 @@ Three routes per (pure phrase row, leaf):
   3. scalar C++ engine (search/scalar_engine.py): exact rows on leaves
      under PHRASE_SCALAR_MAX_DOCS, and the exact residue the device routes
      cannot take.
-A sloppy row the candidate tables cannot take (too heavy, or overflowing)
-has no exact route here (the reference evaluates it with host_engine): it
-raises NotImplementedError naming ROADMAP.md §1 item 9, and is never
-answered approximately.
+What the scalar engine cannot take (a sloppy row the candidate tables
+declined, or any row without the native library) the numpy host engine
+evaluates (search/host_engine.py, _scalar_fallback), as the reference
+does; no row is answered approximately.
 
 Counters (rows unless named): ``search.phrase_device``,
 ``search.phrase_plane``, ``search.phrase_plane_build`` (planes built),
 ``search.phrase_plane_denied`` (plane fetches refused by admission),
 ``search.phrase_scalar_route``, ``search.phrase_host_fallback`` (rows the
-scalar engine took after a device route declined them) and
-``search.phrase_pruned_blocks`` (blocks the selection dropped);
-``search.mixed_host_spill`` (mixed rows a leaf the reference would rerun
-on its host engine; the port raises for them).
+scalar engine or the host engine took after a device route declined
+them) and ``search.phrase_pruned_blocks`` (blocks the selection dropped);
+``search.mixed_host_spill`` (mixed rows a leaf sends back: their planes
+admission denied, or their term matches meet a plane's overflow column;
+each such row reruns whole on the host route).
 
 Caches are module-wide as in the reference, so searchers over one segment
 share them; each entry pins the packed segment its key's id() names.
 Position planes and denominator planes are keyed by (segment, torch
-device) as well. Left out: mixed rows with range clauses (ROADMAP.md §1
-item 2), span groups and synonyms (item 9), the pow2 row pads, the
-static slop / has_ef programs,
+device) as well. Left out: span groups and synonyms (ROADMAP.md §1 item
+9), the pow2 row pads, the static slop / has_ef programs,
 ``MAX_BUILD_ITEMS``' slicing of hot terms, and the ``search.plane_bytes``
 roofline counter.
 
@@ -74,10 +75,6 @@ _PLANE_WORDS_CACHE: dict = {}
 # scalar C++ engine cache: id(packed) -> (engine, live-ref, packed-ref)
 _SCALAR_ENGINE_CACHE: dict = {}
 
-HOST_ITEM9 = "needs host evaluation, which is not ported (ROADMAP.md §1 item 9)"
-RANGE_ITEM2 = "range, exists and prefix filters are not ported (ROADMAP.md §1 item 2)"
-
-
 def _plane_cache_bytes() -> int:
     total = 0
     for plane, overflow, _ref in _PLANE_CACHE.values():
@@ -108,47 +105,6 @@ def resident_plane_count(budget: int, mdp: int, words: int, frac: float) -> int:
     return max(1, int(budget * frac) // max(mdp * (words * 4 + 1), 1))
 
 
-def phrase_row_reason(rq) -> str | None:
-    """Why the phrase routes cannot serve a row with phrases (None: they
-    serve it). Two kinds are served: a pure phrase row (one phrase of 2 to
-    NMAX terms without gaps, MUST or SHOULD, slop at most SLOP_CAP, and no
-    other clause) and a mixed row (term clauses plus one exact phrase of
-    2-8 terms without gaps, MUST or FILTER, in a plain row with no groups
-    and no match-all: the reference's _mixed_device_eligible). A mixed row
-    that would qualify but for its range clauses waits for the filter path
-    (item 2); every other phrase row takes the reference's host path
-    (item 9)."""
-    from rucene_tpu_torch.search.phrase_device import NMAX, SLOP_CAP
-    from rucene_tpu_torch.search.query import Occur
-
-    if rq.clauses:
-        _field, terms, _boost, slop = rq.phrases[0]
-        if not (
-            len(rq.phrases) == 1
-            and rq.phrase_occur(0) in (Occur.MUST, Occur.FILTER)
-            and not rq.groups and not rq.match_all and rq.plain
-            and slop == 0 and 2 <= len(terms) <= 8 and all(t is not None for t in terms)
-        ):
-            return (
-                "a mixed row other than term clauses plus one exact MUST or FILTER "
-                f"phrase of 2-8 terms {HOST_ITEM9}"
-            )
-        if len(rq.ranges) > 8:
-            return f"a mixed row of more than 8 range clauses {HOST_ITEM9}"
-        return f"a mixed row with range clauses: {RANGE_ITEM2}" if rq.ranges else None
-    if len(rq.phrases) > 1 or rq.ranges or rq.groups or rq.match_all or not rq.plain:
-        return f"a phrase row with other phrases, filters or combines {HOST_ITEM9}"
-    _field, terms, _boost, slop = rq.phrases[0]
-    # SHOULD == MUST for a lone phrase (mm bumps to 1)
-    if rq.phrase_occur(0) not in (Occur.MUST, Occur.SHOULD):
-        return f"a FILTER or MUST_NOT phrase row {HOST_ITEM9}"
-    if any(t is None for t in terms) or not 2 <= len(terms) <= NMAX:
-        return f"a gapped phrase, or one of more than {NMAX} terms, {HOST_ITEM9}"
-    if not 0 <= slop <= SLOP_CAP:
-        return f"a phrase of slop above {SLOP_CAP} {HOST_ITEM9}"
-    return None
-
-
 class PhrasePathMixin:
     """Phrase routing + execution; mixed into IndexSearcher. Relies on the
     searcher for: reader, similarity, _gather_stats, _merge_leaf_hits."""
@@ -176,18 +132,44 @@ class PhrasePathMixin:
     PLANE_ADMIT_MIN_DOCS = 2_000_000
 
     def _phrase_device_eligible(self, rq) -> bool:
-        """A pure phrase row the phrase routes serve."""
+        """A pure phrase row the phrase routes serve: one phrase of 2 to
+        NMAX terms without gaps, MUST or SHOULD (SHOULD equals MUST for a
+        lone phrase), slop at most SLOP_CAP, and no other clause."""
+        from rucene_tpu_torch.search.phrase_device import NMAX, SLOP_CAP
+        from rucene_tpu_torch.search.query import Occur
+
         return (
-            rq is not None and bool(rq.phrases) and not rq.clauses
-            and phrase_row_reason(rq) is None
+            rq is not None
+            and len(rq.phrases) == 1
+            and rq.phrase_occur(0) in (Occur.MUST, Occur.SHOULD)
+            and not rq.clauses
+            and not rq.ranges
+            and not rq.groups
+            and not rq.match_all
+            and 0 <= rq.phrases[0][3] <= SLOP_CAP
+            and 2 <= len(rq.phrases[0][1]) <= NMAX
+            and all(t is not None for t in rq.phrases[0][1])
         )
 
     def _mixed_device_eligible(self, rq) -> bool:
-        """A mixed row (term clauses plus one required exact phrase) that
-        _search_mixed_device serves."""
+        """A mixed row _search_mixed_device serves: term clauses, at most 8
+        range clauses and one exact MUST or FILTER phrase of 2-8 terms
+        without gaps, in a plain row with no groups and no match-all.
+        Sloppy, SHOULD and multi-phrase mixes take the host route."""
+        from rucene_tpu_torch.search.query import Occur
+
         return (
-            rq is not None and bool(rq.phrases) and bool(rq.clauses)
-            and phrase_row_reason(rq) is None
+            rq is not None
+            and len(rq.phrases) == 1
+            and rq.phrase_occur(0) in (Occur.MUST, Occur.FILTER)
+            and bool(rq.clauses)
+            and not rq.groups
+            and len(rq.ranges) <= 8
+            and not rq.match_all
+            and rq.plain
+            and rq.phrases[0][3] == 0
+            and 2 <= len(rq.phrases[0][1]) <= 8
+            and all(t is not None for t in rq.phrases[0][1])
         )
 
     @staticmethod
@@ -238,7 +220,7 @@ class PhrasePathMixin:
             slot_parts.append(np.full(len(keep_b), j, np.int32))
         return np.concatenate(blk_parts), np.concatenate(slot_parts)
 
-    def _search_phrases_device(self, rqs, k: int, _defer: bool = False):
+    def _search_phrases_device(self, queries, rqs, k: int, _defer: bool = False):
         """Batch of pure phrase rows. Per leaf: block selection first, then
         rows whose pruned work fits the candidate tables run the pipeline,
         mid and heavy exact rows run on position planes, and the scalar
@@ -406,7 +388,8 @@ class PhrasePathMixin:
             host_rows = scalar_rows + direct_sc
             if host_rows:
                 hits = self._scalar_fallback_batch(
-                    leaf, [rqs[i] for i in host_rows], sim, stats, doc_freqs, k
+                    leaf, [rqs[i] for i in host_rows], [queries[i] for i in host_rows],
+                    sim, stats, doc_freqs, k,
                 )
                 for gi, hh in zip(host_rows, hits):
                     per_query_leaf[gi].append((leaf.doc_base, hh.docs, hh.scores, hh.total_hits))
@@ -430,7 +413,7 @@ class PhrasePathMixin:
                     per_query_leaf[gi].append((leaf.doc_base, dd, ss, hh))
                 # rare residue: exact candidate-table overflow rows retry on
                 # the plane path; plane-overflow rows rerun on the scalar
-                # engine; sloppy overflow rows have no exact route here
+                # engine, sloppy overflow rows on the host engine
                 plane_retry = [i for i in overflow_rows if rqs[i].phrases[0][3] == 0]
                 pset2 = set(plane_retry)
                 late_scalar = [i for i in overflow_rows if i not in pset2]
@@ -446,7 +429,8 @@ class PhrasePathMixin:
                 if late_scalar:
                     METRICS.incr("search.phrase_host_fallback", len(late_scalar))
                     hits = self._scalar_fallback_batch(
-                        leaf, [rqs[i] for i in late_scalar], sim, stats, doc_freqs, k
+                        leaf, [rqs[i] for i in late_scalar], [queries[i] for i in late_scalar],
+                        sim, stats, doc_freqs, k,
                     )
                     for gi, hh in zip(late_scalar, hits):
                         per_query_leaf[gi].append((leaf.doc_base, hh.docs, hh.scores, hh.total_hits))
@@ -632,20 +616,20 @@ class PhrasePathMixin:
         _PLANE_CACHE[key] = (denom, None, leaf.packed)
         return denom
 
-    def _search_mixed_device(self, rqs, k: int, _defer: bool = False):
-        """Mixed rows (term clauses plus one required exact phrase): per
-        leaf, the phrase planes fetched with admission, then one
-        executor.execute_mixed_planes call per (arity, chunk of rows),
+    def _search_mixed_device(self, queries, rqs, k: int, _defer: bool = False):
+        """Mixed rows (term clauses and ranges plus one required exact
+        phrase): per leaf, the phrase planes fetched with admission, then
+        one executor.execute_mixed_planes call per (arity, chunk of rows),
         whose term clauses take the flat work list, the lane decode and
-        the combine kernel. A FILTER phrase is weighted 0. A term absent
-        from a leaf (phrase or required clause) means no hit there.
+        the combine kernel, and whose ranges take the chunk's filter
+        planes. A FILTER phrase is weighted 0. A term absent from a leaf
+        (phrase or required clause) means no hit there.
 
-        The reference reruns two kinds of row on its host engine: rows
-        whose planes admission denied, and rows whose term matches meet
-        a plane's overflow column (ov_count > 0). The port has no host
-        engine (ROADMAP.md §1 item 9): such rows are counted under
-        ``search.mixed_host_spill`` (a row a leaf) and the batch raises
-        naming item 9; no row is answered approximately.
+        Two kinds of row go back, as in the reference: rows whose planes
+        admission denied, and rows whose term matches meet a plane's
+        overflow column (ov_count > 0). Each is counted under
+        ``search.mixed_host_spill`` (a row a leaf) and reruns whole on the
+        host route (_search_host), exactly.
 
         _defer=True returns a finish() closure: every leaf's calls are
         queued now, every read of a result waits until finish()."""
@@ -710,6 +694,10 @@ class PhrasePathMixin:
                     )
                     bs, bc, fids = build_leaf_tables(leaf, sub, nb, t)
                     work = build_flat_work(bs, bc, weight, fids, occur)[:6]
+                    filters = (
+                        self._leaf_filters(leaf, *self._range_filter_tables(sub, nb))
+                        if any(rq.ranges for rq in sub) else None
+                    )
                     METRICS.incr("search.flat_lanes", int(work[5].sum()) * 128)
                     fq = make_flat_batch(work, n_req, min_should, cache, dev, dedupe=True)
                     combine = build_combine_batch(
@@ -722,6 +710,7 @@ class PhrasePathMixin:
                         tuple(o for c in cells for o in c[2]),
                         tuple(c[3] for c in cells),
                         _put([c[4] for c in cells], dev.device, np.float32), k, nt,
+                        filters=filters,
                     )
                     futures.append((leaf, [c[0] for c in cells], res))
 
@@ -735,13 +724,11 @@ class PhrasePathMixin:
                         continue
                     keep = s[li] > -np.inf
                     per_query_leaf[gi].append((leaf.doc_base, d[li][keep], s[li][keep], int(h[li])))
-            if spilled:
-                raise NotImplementedError(
-                    f"{len(spilled)} mixed rows (phrase planes denied or overflowed) "
-                    f"need the reference's host rerun, which is not ported "
-                    f"(ROADMAP.md §1 item 9)"
-                )
-            return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
+            return [
+                self._search_host(queries[i], k) if i in spilled
+                else self._merge_leaf_hits(per_query_leaf[i], k)
+                for i in range(b)
+            ]
 
         if _defer:
             return finish
@@ -854,23 +841,26 @@ class PhrasePathMixin:
                 done[gi] = (d[li][keep], s[li][keep], int(h[li]))
         return done, spill
 
-    def _scalar_fallback_batch(self, leaf, rqs, sim, stats, doc_freqs, k):
-        """Batched scalar-engine evaluation on one leaf. What the engine
-        cannot take — a sloppy phrase the candidate tables declined, or any
-        row without the native library — needs the reference's host_engine
-        (its _scalar_fallback), which is not ported: NotImplementedError."""
-        if any(sl for rq in rqs for (_f, _t, _b, sl) in rq.phrases):
-            raise NotImplementedError(
-                f"a sloppy phrase that the candidate tables cannot take {HOST_ITEM9}"
-            )
-        try:
-            sc = self._scalar_engine_for(leaf, sim, stats, doc_freqs)
-        except RuntimeError as e:
-            raise NotImplementedError(
-                f"a phrase row the device routes declined, without the native scalar "
-                f"engine ({e}), {HOST_ITEM9}"
-            ) from None
-        return sc.search_batch(rqs, k=k)
+    def _scalar_fallback_batch(self, leaf, rqs, queries, sim, stats, doc_freqs, k):
+        """Batched scalar-engine evaluation on one leaf; the numpy host
+        engine per row (_scalar_fallback) where the engine cannot take the
+        batch: a sloppy or gapped phrase, or no native library."""
+        supported = all(
+            rq is not None and not rq.groups and not rq.ranges and rq.plain
+            and all(sl == 0 for (_f, _t, _b, sl) in rq.phrases)
+            and all(t is not None for (_f, ts, _b, _s) in rq.phrases for t in ts)
+            for rq in rqs
+        )
+        if supported:
+            try:
+                sc = self._scalar_engine_for(leaf, sim, stats, doc_freqs)
+                return sc.search_batch(rqs, k=k)
+            except (RuntimeError, ValueError):
+                pass
+        return [
+            self._scalar_fallback(leaf, rq, q, sim, stats, doc_freqs, k)
+            for rq, q in zip(rqs, queries)
+        ]
 
     def _scalar_engine_for(self, leaf, sim, stats, doc_freqs):
         from rucene_tpu_torch.search.scalar_engine import ScalarSearcher
@@ -887,6 +877,24 @@ class PhrasePathMixin:
             cached[0].stats = stats
             cached[0].doc_freqs = doc_freqs
         return cached[0]
+
+    def _scalar_fallback(self, leaf, rq, query, sim, stats, doc_freqs, k):
+        """One query on one leaf through the scalar C++ engine, or the numpy
+        host engine where the shape is unsupported or the native library
+        is absent. The host engine reads the Query object, so queries with
+        their own evaluator (host_eval) take it."""
+        from rucene_tpu_torch.search import host_engine
+
+        if rq is not None and not rq.groups and not rq.ranges and rq.plain and all(
+            sl == 0 for (_f, _t, _b, sl) in rq.phrases
+        ):
+            try:
+                sc = self._scalar_engine_for(leaf, sim, stats, doc_freqs)
+                return sc.search_batch([rq], k=k)[0]
+            except (RuntimeError, ValueError):
+                pass
+        m, acc = host_engine.evaluate_query(leaf, query, sim, stats, doc_freqs)
+        return host_engine.hits_from_dense(leaf, m, acc, k)
 
 
 def _put(a, device, dtype=np.int32) -> torch.Tensor:

@@ -4,17 +4,6 @@ Queries rewrite to a flat clause table the batch executor understands:
 term clauses with occur kind + boost, plus query-level boolean controls.
 PhraseQuery rewrites to a conjunction plus a positional verification stage
 (the two-phase analog, see searcher.py).
-
-Port changes (held against rucene_tpu/search/query.py by
-tests/test_torch_host.py; everything else is the original with the import
-prefix mapped):
-- ConstantScoreQuery.extract_terms: raises NotImplementedError (the host
-  engine is not ported).
-- ConstantScoreQuery.host_eval: raises NotImplementedError.
-- BoostingQuery.extract_terms: raises NotImplementedError.
-- BoostingQuery.host_eval: raises NotImplementedError.
-- DisjunctionMaxQuery.host_eval: raises NotImplementedError.
-- BooleanQuery.extract_terms: raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -269,9 +258,9 @@ class ConstantScoreQuery(Query):
         self.boost = boost
 
     def extract_terms(self):
-        raise NotImplementedError(
-            "host evaluation is not ported (ROADMAP.md §1 item 9)"
-        )
+        from rucene_tpu_torch.search.host_engine import extract_terms_of
+
+        return extract_terms_of(self.query)
 
     def rewrite(self) -> RewrittenQuery:
         """Device form: the wrapped query's match logic with the final
@@ -288,9 +277,13 @@ class ConstantScoreQuery(Query):
         return rq
 
     def host_eval(self, leaf, sim, stats, doc_freqs):
-        raise NotImplementedError(
-            "host evaluation is not ported (ROADMAP.md §1 item 9)"
-        )
+        import numpy as np
+
+        from rucene_tpu_torch.search import host_engine
+
+        m, _ = host_engine.evaluate_query(leaf, self.query, sim, stats, doc_freqs)
+        return m, np.where(m, np.float32(self.boost), np.float32(0.0)).astype(np.float32)
+
 
 class FilterQuery(ConstantScoreQuery):
     """Non-scoring filter wrapper (reference filter_query.rs): constant 0."""
@@ -361,9 +354,9 @@ class BoostingQuery(Query):
         self.boost = 1.0
 
     def extract_terms(self):
-        raise NotImplementedError(
-            "host evaluation is not ported (ROADMAP.md §1 item 9)"
-        )
+        from rucene_tpu_torch.search.host_engine import extract_terms_of
+
+        return extract_terms_of(self.positive) + extract_terms_of(self.negative)
 
     def rewrite(self) -> RewrittenQuery:
         """Device form: positive's rewritten query plus a demote group —
@@ -396,9 +389,15 @@ class BoostingQuery(Query):
         return pos
 
     def host_eval(self, leaf, sim, stats, doc_freqs):
-        raise NotImplementedError(
-            "host evaluation is not ported (ROADMAP.md §1 item 9)"
-        )
+        import numpy as np
+
+        from rucene_tpu_torch.search import host_engine
+
+        pm, ps = host_engine.evaluate_query(leaf, self.positive, sim, stats, doc_freqs)
+        nm, _ = host_engine.evaluate_query(leaf, self.negative, sim, stats, doc_freqs)
+        scores = np.where(nm, (ps * np.float32(self.negative_boost)).astype(np.float32), ps)
+        return pm, scores.astype(np.float32)
+
 
 class DisjunctionMaxQuery(Query):
     """score = max(sub scores) + tie_breaker * (sum of other sub scores)
@@ -452,9 +451,25 @@ class DisjunctionMaxQuery(Query):
         return out
 
     def host_eval(self, leaf, sim, stats, doc_freqs):
-        raise NotImplementedError(
-            "host evaluation is not ported (ROADMAP.md §1 item 9)"
-        )
+        import numpy as np
+
+        from rucene_tpu_torch.search import host_engine
+
+        md = leaf.max_doc
+        best = np.zeros(md, dtype=np.float32)
+        total = np.zeros(md, dtype=np.float32)
+        any_match = np.zeros(md, dtype=bool)
+        for q in self.queries:
+            m, s = host_engine.evaluate_query(leaf, q, sim, stats, doc_freqs)
+            s = np.where(m, s, 0.0).astype(np.float32)
+            best = np.maximum(best, s)
+            total = (total + s).astype(np.float32)
+            any_match |= m
+        tie = np.float32(self.tie_breaker)
+        score = (best + tie * (total - best)).astype(np.float32)
+        score = (score * np.float32(self.boost)).astype(np.float32)
+        return any_match, np.where(any_match, score, 0.0).astype(np.float32)
+
 
 @dataclass
 class PointRangeQuery(Query):
@@ -521,9 +536,12 @@ class BooleanQuery(Query):
         return self.add(q, Occur.MUST_NOT)
 
     def extract_terms(self):
-        raise NotImplementedError(
-            "host evaluation is not ported (ROADMAP.md §1 item 9)"
-        )
+        from rucene_tpu_torch.search.host_engine import extract_terms_of
+
+        out = []
+        for _, sub in self.clauses:
+            out.extend(extract_terms_of(sub))
+        return out
 
     def rewrite(self) -> RewrittenQuery:
         out = RewrittenQuery(min_should_match=self.min_should_match, boost=self.boost)

@@ -1,23 +1,31 @@
 """IndexSearcher: batched entry point over a point-in-time IndexReader
 (counterpart of rucene_tpu/search/searcher.py: the generic flat route with
-its score-combine rows and match-all rows, the single-term route, the pair
-and tf-plane routes, the pure phrase routes and the mixed phrase rows).
+its filter planes, score-combine rows and match-all rows, the single-term
+route, the pair and tf-plane routes, the pure phrase routes, the mixed
+phrase rows and the host route).
 
-A batch splits by row kind, as the reference's does: term and boolean
-rows (dismax, constant-score, boosting and match-all rows among them) go
-to the device path below, pure phrase rows (one PhraseQuery of 2-8 terms,
-MUST or SHOULD, with no other clause) and mixed rows (term clauses plus
-one required exact phrase) to search/phrase_path.py. All three are queued
-before any is collected, in that order, so the phrase work queues behind
-the term rows' kernels. Counters ``route.device``, ``route.phrase`` and
-``route.mixed`` count the rows of each.
+A batch splits by row kind, as the reference's does:
+- device rows: term and boolean rows with at most 8 range clauses, no
+  nested clause group, and no match-all beside other clauses (dismax,
+  constant-score, boosting and match-all rows among them) go to the device
+  path below;
+- pure phrase rows (one PhraseQuery of 2-8 terms, MUST or SHOULD, with no
+  other clause) and mixed rows (term clauses and up to 8 range clauses
+  plus one required exact phrase) go to search/phrase_path.py;
+- every other row (a rewrite that needs host evaluation, nested groups,
+  more than 8 ranges, match-all beside clauses, a SHOULD, sloppy or
+  gapped phrase inside a boolean) goes to the host route: the numpy
+  engine of search/host_engine.py, one leaf at a time.
+The device paths are queued before any is collected, in that order, so the
+phrase work queues behind the term rows' kernels, and the host rows run
+while all of it is in flight. Counters ``route.device``, ``route.phrase``,
+``route.mixed`` and ``route.host`` count the rows of each.
 
-Term and boolean rows run per leaf on the searcher's torch device, over
-decoded or packed segments alike; leaf hits merge by (score desc, global
-doc asc). Four routes (counters: ``route.single`` and ``route.flat`` rows
-a batch; ``route.plane_rows`` and ``route.pair_rows`` rows a leaf call,
-the pair count without the rows that overflow, as the reference counts
-them):
+Device rows run per leaf on the searcher's torch device, over decoded or
+packed segments alike; leaf hits merge by (score desc, global doc asc).
+Four routes (counters: ``route.single`` and ``route.flat`` rows a batch;
+``route.plane_rows`` and ``route.pair_rows`` rows a leaf call, the pair
+count without the rows that overflow, as the reference counts them):
 - single: a batch of plain term rows (one positive-weight SHOULD clause)
   over leaves without deletes goes to execute_flat_single_dec on a
   decoded leaf, execute_flat_single on a packed one; total_hits is the
@@ -31,29 +39,32 @@ them):
   Rows whose probe-slot count overflows MAXP_CAP in a leaf rerun there on
   the flat executor, merged per row (``search.pair_overflow_rows``, rows
   per leaf), as the reference does;
-- flat: everything else, through the generic flat executor.
+- flat: everything else, through the generic flat executor. Range,
+  exists and prefix clauses ride it as cached filter planes
+  (search/filter_path.py); a batch in which some row with ranges has no
+  required term clause is not candidate-complete and takes the dense
+  branch, whatever else picks the strategy.
 On a corpus of SPLIT_MIN_DOCS or more, a mixed batch splits into single,
 pure-disjunction, other, pair and plane rows (the reference's row classes
-0-4), each its own executor call. Below it a batch takes the planes only
-if every row may, else the pair route only if every row may and the
-batch is not all single-term rows. Packed leaves have neither tf planes
-nor the pair route, so their boolean rows stay generic, as the
-reference's do. A batch holding a dismax, constant-score or boosting row
-takes no tf planes (their RowExtras exist only on the flat executor), and
-match-all rows take execute_match_all per leaf, merged over the flat
-executor's answer for them. Collection statistics are computed once per
-searcher. Rows this slice does not serve raise NotImplementedError naming
-the ROADMAP.md item that ports them: there is no host fallback.
+0-4; rows with ranges are "other"), each its own executor call. Below it a
+batch takes the planes only if every row may, else the pair route only if
+every row may and the batch is not all single-term rows. Packed leaves
+have neither tf planes nor the pair route, so their boolean rows stay
+generic, as the reference's do. A batch holding a dismax, constant-score
+or boosting row takes no tf planes (their RowExtras exist only on the flat
+executor), and match-all rows take execute_match_all per leaf, merged over
+the flat executor's answer for them. Collection statistics are computed
+once per searcher.
 
 ``search_batch(timeout_s=)`` checks its deadline between leaves on the
 term path and the mixed path; leaves not reached are skipped and
 ``timed_out`` is set, so results are partial, as the reference's are.
 
 Left out of the reference: WAND pruning, the combined multi-segment view,
-span, range and synonym paths, and
-the A/B knobs RUCENE_PLANE_TERMS, RUCENE_PLANES_ROUTE_DIV,
-RUCENE_PAIR_PROBE and RUCENE_PAIR_TOPK (the pair route's probe variant is
-picked from the batch: one field for both clauses of every row, or not).
+the span and synonym paths, and the A/B knobs RUCENE_PLANE_TERMS,
+RUCENE_PLANES_ROUTE_DIV, RUCENE_PAIR_PROBE and RUCENE_PAIR_TOPK (the pair
+route's probe variant is picked from the batch: one field for both
+clauses of every row, or not).
 """
 
 from __future__ import annotations
@@ -94,15 +105,18 @@ from rucene_tpu_torch.search.flat_tables import (
     make_flat_batch,
     prune_conjunctions,
 )
+from rucene_tpu_torch.search import host_engine
+from rucene_tpu_torch.search.filter_path import FilterPathMixin
 from rucene_tpu_torch.search.pair_path import build_pair_work, pair2_eligible
-from rucene_tpu_torch.search.phrase_path import (
-    HOST_ITEM9,
-    RANGE_ITEM2,
-    PhrasePathMixin,
-    phrase_row_reason,
-)
+from rucene_tpu_torch.search.phrase_path import PhrasePathMixin
 from rucene_tpu_torch.search.plane_path import plane_row_chunk, plane_structural
-from rucene_tpu_torch.search.query import Occur, Query, RewrittenQuery, _NeedsHostEval
+from rucene_tpu_torch.search.query import (
+    BooleanQuery,
+    Occur,
+    Query,
+    RewrittenQuery,
+    _NeedsHostEval,
+)
 from rucene_tpu_torch.search.similarity import BM25Similarity, CollectionStats
 from rucene_tpu_torch.util.metrics import METRICS
 
@@ -150,22 +164,20 @@ class TopDocs:
         )
 
 
-def unported_reason(rq: RewrittenQuery | None) -> str | None:
-    """Why this slice cannot serve a rewritten row (None: it can)."""
-    if rq is None:
-        return HOST_ITEM9
-    if rq.phrases:
-        return phrase_row_reason(rq)
-    if rq.match_all and (rq.clauses or rq.ranges):
-        return f"a match-all row with other clauses {HOST_ITEM9}"
-    if rq.ranges:
-        return RANGE_ITEM2
-    if rq.groups:
-        return f"a row of nested clause groups {HOST_ITEM9}"
-    return None
+def device_row(rq: RewrittenQuery | None) -> bool:
+    """A row the device path serves (the reference's device rows): a
+    rewrite without phrases or nested groups, at most 8 range clauses, and
+    no match-all beside other clauses."""
+    return (
+        rq is not None
+        and not rq.phrases
+        and not rq.groups
+        and len(rq.ranges) <= 8
+        and not (rq.match_all and (rq.clauses or rq.ranges))
+    )
 
 
-class IndexSearcher(PhrasePathMixin):
+class IndexSearcher(PhrasePathMixin, FilterPathMixin):
     def __init__(
         self,
         reader: IndexReader,
@@ -220,21 +232,25 @@ class IndexSearcher(PhrasePathMixin):
         t_start = time.perf_counter()
         METRICS.incr("search.queries", len(queries))
         plans = [self._plan_for(q) for q in queries]
-        for i, p in enumerate(plans):
-            why = unported_reason(p.rq)
-            if why is not None:
-                raise NotImplementedError(f"query {i} ({type(p.q).__name__}): {why}")
-        phrase_idx = [i for i, p in enumerate(plans) if self._phrase_device_eligible(p.rq)]
-        mixed_idx = [i for i, p in enumerate(plans) if self._mixed_device_eligible(p.rq)]
-        taken = set(phrase_idx) | set(mixed_idx)
-        device_idx = [i for i in range(len(plans)) if i not in taken]
+        device_idx = [i for i, p in enumerate(plans) if device_row(p.rq)]
+        taken = set(device_idx)
+        phrase_idx = [
+            i for i, p in enumerate(plans) if i not in taken and self._phrase_device_eligible(p.rq)
+        ]
+        taken |= set(phrase_idx)
+        mixed_idx = [
+            i for i, p in enumerate(plans) if i not in taken and self._mixed_device_eligible(p.rq)
+        ]
+        taken |= set(mixed_idx)
+        host_idx = [i for i in range(len(plans)) if i not in taken]
         METRICS.incr("route.device", len(device_idx))
         METRICS.incr("route.phrase", len(phrase_idx))
         METRICS.incr("route.mixed", len(mixed_idx))
+        METRICS.incr("route.host", len(host_idx))
         # queue every device path before collecting any, in the reference's
         # order: the phrase and mixed work queues behind the term rows'
-        # kernels, and the scalar phrase rows run on the host while all
-        # of it is in flight
+        # kernels, and the scalar phrase rows and the host rows run on the
+        # host while all of it is in flight
         paths = []
         if device_idx:
             paths.append((device_idx, self._search_device(
@@ -242,12 +258,17 @@ class IndexSearcher(PhrasePathMixin):
             )))
         if phrase_idx:
             paths.append((phrase_idx, self._search_phrases_device(
-                [plans[i].rq for i in phrase_idx], k, _defer=True
+                [queries[i] for i in phrase_idx], [plans[i].rq for i in phrase_idx], k,
+                _defer=True,
             )))
         if mixed_idx:
             paths.append((mixed_idx, self._search_mixed_device(
-                [plans[i].rq for i in mixed_idx], k, _defer=True
+                [queries[i] for i in mixed_idx], [plans[i].rq for i in mixed_idx], k,
+                _defer=True,
             )))
+        if host_idx:
+            host_hits = [self._search_host(queries[i], k) for i in host_idx]
+            paths.append((host_idx, lambda: host_hits))
 
         def collect() -> list[TopDocs]:
             out: list[TopDocs | None] = [None] * len(queries)
@@ -289,7 +310,8 @@ class IndexSearcher(PhrasePathMixin):
             plan = plans[idx] if plans is not None else None
             terms = plan.stats_terms if plan is not None else None
             if terms is None:
-                terms = [(c.term.field, c.term.text) for c in rq.clauses]
+                group_clauses = [c for _, members in rq.groups for c in members]
+                terms = [(c.term.field, c.term.text) for c in list(rq.clauses) + group_clauses]
                 terms += [(f, t) for f, ph_terms, _b, _s in rq.phrases for t in ph_terms if t is not None]
                 if plan is not None:
                     plan.stats_terms = terms
@@ -331,11 +353,14 @@ class IndexSearcher(PhrasePathMixin):
     # --- device path ---
     @staticmethod
     def _pure_row(rq, wrow) -> bool:
-        """All-SHOULD positive-weight row with min_should <= 1: it matches
-        exactly where its score is > 0, so it needs no clause counts."""
+        """All-SHOULD positive-weight row of term clauses only, with
+        min_should <= 1: it matches exactly where its score is > 0, so it
+        needs no clause counts."""
         return (
             rq.n_required == 0
             and rq.effective_min_should() <= 1
+            and not rq.match_all
+            and not rq.ranges
             and rq.plain
             and bool(rq.clauses)
             and all(c.occur == Occur.SHOULD for c in rq.clauses)
@@ -394,6 +419,20 @@ class IndexSearcher(PhrasePathMixin):
 
             return finish_split
 
+        # range clauses ride as filter planes: a batch in which a doc may
+        # match through its ranges alone has no candidate lane for it, so
+        # it takes the dense branch whatever else picks the strategy
+        filter_tables, strategy = None, os.environ.get("RUCENE_STRATEGY", "auto")
+        if any(rq.ranges for rq in rqs):
+            filter_tables = self._range_filter_tables(rqs, b)
+            if not self._ranges_complete(rqs):
+                strategy = "dense"
+        # conjunction pruning intersects required term clauses only: a
+        # range meets its requirement through its plane, not lanes
+        n_required_terms = np.array(
+            [sum(c.occur in (Occur.MUST, Occur.FILTER) for c in rq.clauses) for rq in rqs],
+            np.int32,
+        )
         pure = all(pure_rows)
         # a match-all row has no clause, so it is never single (nor pure,
         # pair or plane): a batch holding one takes the flat executor
@@ -439,15 +478,17 @@ class IndexSearcher(PhrasePathMixin):
                     continue
             work = build_flat_work(block_start, block_count, weight, field_id, occur)
             work, _ = prune_conjunctions(
-                work, n_required, (leaf.packed.blk_first_doc, leaf.packed.blk_last_doc),
+                work, n_required_terms, (leaf.packed.blk_first_doc, leaf.packed.blk_last_doc),
             )
             if single:
                 res = self._run_single_view(
                     leaf.device, work, lane_cnt, cache, n_required, min_should, k
                 )
             else:
+                filters = self._leaf_filters(leaf, *filter_tables) if filter_tables else None
                 res = self._run_work(
-                    leaf, work[:6], cache, n_required, min_should, k, pure, extras, with_dismax
+                    leaf, work[:6], cache, n_required, min_should, k, pure, extras, with_dismax,
+                    filters=filters, strategy=strategy,
                 )
             ma = execute_match_all(leaf.device, boosts_t, k) if boosts_t is not None else None
             pending.append((leaf.doc_base, res, ma))
@@ -613,10 +654,12 @@ class IndexSearcher(PhrasePathMixin):
         )
 
     def _run_work(self, leaf, arrays, cache, n_required, min_should, k, pure,
-                  extras=None, with_dismax=False):
-        """One executor call for a leaf's work list."""
+                  extras=None, with_dismax=False, filters=None, strategy=None):
+        """One executor call for a leaf's work list. strategy: the executor
+        branch ("auto", "dense" or "candidate"; None reads RUCENE_STRATEGY)."""
         dev = leaf.device
-        strategy = os.environ.get("RUCENE_STRATEGY", "auto")
+        if strategy is None:
+            strategy = os.environ.get("RUCENE_STRATEGY", "auto")
         n_items = len(arrays[0])
         METRICS.incr("search.flat_lanes", int(arrays[5].sum()) * 128)
         dense = dense_strategy(len(n_required), dev.max_doc_padded, n_items, strategy)
@@ -629,8 +672,47 @@ class IndexSearcher(PhrasePathMixin):
         q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
         return execute_flat_impl(
             dev, q, k, pure_disjunction=pure, combine=combine, extras=extras,
-            with_dismax=with_dismax,
+            with_dismax=with_dismax, filters=filters,
         )
+
+    # --- host route ---
+    def _search_host(self, query: Query, k: int) -> TopDocs:
+        """One row through the numpy host engine, leaf by leaf (the
+        reference's host path: host_engine.evaluate_query, then the
+        (score desc, doc asc) top-k of each leaf, merged). A boolean whose
+        flat rewrite refuses a nested clause with required members (the
+        reference raises NotImplementedError there) is evaluated clause by
+        clause with the generic boolean evaluator, which is exact."""
+        doc_freqs, stats = self._gather_stats_query(query)
+        sim = self.similarity
+        per_leaf = []
+        for leaf in self.reader.leaves:
+            try:
+                match, acc = host_engine.evaluate_query(leaf, query, sim, stats, doc_freqs)
+            except NotImplementedError:
+                if not isinstance(query, BooleanQuery):
+                    raise
+                match, acc = host_engine._evaluate_boolean_generic(
+                    leaf, query, sim, stats, doc_freqs
+                )
+            hits = host_engine.hits_from_dense(leaf, match, acc, k)
+            per_leaf.append((leaf.doc_base, hits.docs, hits.scores, hits.total_hits))
+        return self._merge_leaf_hits(per_leaf, k)
+
+    def _gather_stats_query(self, query: Query):
+        """Statistics for any query: the terms it names (extract_terms, as
+        Weight::extract_terms does), else those of its rewrite."""
+        if hasattr(query, "extract_terms"):
+            doc_freqs: dict[tuple[str, str], int] = {}
+            for t in query.extract_terms():
+                key = (t.field, t.text)
+                if key not in doc_freqs:
+                    doc_freqs[key] = self.reader.doc_freq(*key)
+            return doc_freqs, {f: self.collection_stats(f) for f, _t in doc_freqs}
+        try:
+            return self._gather_stats([query.rewrite()])
+        except _NeedsHostEval:
+            return {}, {}
 
 
 def _row_extras(rqs, device) -> tuple[RowExtras, bool]:

@@ -223,15 +223,27 @@ def test_timeout(monkeypatch):
 
 
 def test_match_all_with_clauses_raises_item9():
-    """MatchAll beside a term clause is the reference's host route (it
-    never reaches its device path): item 9."""
-    q = T.BooleanQuery()
-    q.must(T.MatchAllDocsQuery())
-    q.should(_t(T, "body", "w3"))
-    rq = q.rewrite()
+    """MatchAll beside a term clause, and beside a range, is the
+    reference's host route (it never reaches its device path): the port
+    answers it on the host engine, counted under route.host, equal to the
+    reference."""
+    def rows(pkg):
+        with_term = pkg.BooleanQuery()
+        with_term.must(pkg.MatchAllDocsQuery())
+        with_term.should(_t(pkg, "body", "w3"))
+        with_range = pkg.BooleanQuery()
+        with_range.must(pkg.MatchAllDocsQuery(boost=2.0))
+        with_range.filter(pkg.ExistsQuery("title"))
+        return [with_term, with_range]
+
+    rq = rows(T)[0].rewrite()
     assert rq.match_all and rq.clauses
+    packed = _pack(_docs(50))
+    want = R.IndexSearcher(RefReader([RefSnapshot("s0", packed)])).search_batch(rows(R), k=K_ALL)
     searcher = T.IndexSearcher(
-        IndexReader([SegmentSnapshot("s0", packed_from_reference(_pack(_docs(50))))]), device="cpu"
+        IndexReader([SegmentSnapshot("s0", packed_from_reference(packed))]), device="cpu"
     )
-    with pytest.raises(NotImplementedError, match="item 9"):
-        searcher.search(q, k=5)
+    METRICS.reset()
+    got = searcher.search_batch(rows(T), k=K_ALL)
+    assert METRICS.snapshot()["counters"].get("route.host", 0) == 2
+    assert_batches_strict(got, want)

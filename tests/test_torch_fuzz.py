@@ -2,15 +2,19 @@
 (after tests/test_fuzz_differential.py:31-92).
 
 A two-segment Zipf index built by rucene_tpu, with and without deletes,
-is carried across with packed_from_reference. Seeded random rows of every
-kind the port serves go through both packages in one batch:
+its docs carrying an IntPoint ``ts`` and (one in 3) a StringField
+``tag``, is carried across with packed_from_reference. Seeded random rows
+of every kind go through both packages in one batch:
 - TermQuery and BooleanQuery rows: 1-5 clauses of every occur,
   min_should_match 0-2, clause boosts;
+- boolean rows with range, exists and prefix clauses of every occur
+  beside term clauses, and filter-only rows;
 - pure phrase rows (slop 0-2), and mixed rows (term clauses plus one MUST
-  or FILTER exact phrase);
-- DisjunctionMax, ConstantScore and Boosting rows, and MatchAll rows.
-Rows whose rewrite the port does not serve (host evaluation) are
-redrawn. The port runs with the row-class split forced on
+  or FILTER exact phrase, some with a range FILTER);
+- DisjunctionMax, ConstantScore and Boosting rows, and MatchAll rows;
+- host rows: nested clause groups, dismax over booleans, match-all
+  beside a clause, more than 8 ranges.
+The port runs with the row-class split forced on
 (SPLIT_MIN_DOCS = 0) and a tf plane for every term (RUCENE_PLANES=1), on
 decoded and on packed leaves, so that every route fires: the single route
 (leaves without deletes), the plane and pair routes (decoded leaves: a
@@ -32,7 +36,7 @@ from rucene_tpu_torch.search import phrase_path
 from rucene_tpu_torch.search import searcher as searcher_mod
 from rucene_tpu_torch.util.metrics import METRICS
 from tests.torch_hitcheck import assert_batches_strict
-from tests.torch_route_data import port_searcher, ref_segments, zipf_texts
+from tests.torch_route_data import TS_MAX, port_searcher, ref_segments, zipf_texts
 
 K_ALL = 1200  # above every row's hit count: complete lists
 # a term with a freq above 255 in one doc of each segment: it gets no u8 tf
@@ -46,10 +50,85 @@ def _term(pkg, word, boost=1.0):
     return pkg.TermQuery(pkg.Term("body", word), boost=boost)
 
 
+def _filter_maker(rng):
+    """One range, exists or prefix query over the filter fields."""
+    u = rng.random()
+    if u < 0.5:
+        lo = int(rng.integers(-50, TS_MAX))
+        hi = lo + int(rng.integers(0, TS_MAX // 3))
+        return lambda pkg: pkg.PointRangeQuery("ts", lo, hi)
+    if u < 0.7:
+        field = str(rng.choice(["tag", "ts", "body", "nope"]))
+        return lambda pkg: pkg.ExistsQuery(field)
+    prefix, boost = str(rng.choice(["c", "c0", "c1", "c2", "c07", "d"])), float(rng.choice([1.0, 0.5]))
+    return lambda pkg: pkg.PrefixQuery("tag", prefix, boost=boost)
+
+
 def _draw(rng, words, bigrams):
     """One row, as a function that makes it with either package."""
-    kind = int(rng.integers(0, 10))
+    kind = int(rng.integers(0, 16))
     pick = lambda n: [str(w) for w in rng.choice(words, n, replace=False)]  # noqa: E731
+    if kind in (10, 11):  # term clauses beside 1-3 filter clauses
+        n = int(rng.integers(0 if kind == 11 else 1, 3))
+        terms = pick(n)
+        occs = [OCCURS[int(rng.integers(0, 4))] for _ in range(n)]
+        filters = [_filter_maker(rng) for _ in range(int(rng.integers(1, 4)))]
+        f_occs = [OCCURS[int(rng.integers(0, 4))] for _ in filters]
+
+        def filtered(pkg):
+            q = pkg.BooleanQuery()
+            for t, o in zip(terms, occs):
+                getattr(q, o)(_term(pkg, t))
+            for f, o in zip(filters, f_occs):
+                getattr(q, o)(f(pkg))
+            return q
+        return filtered
+    if kind == 12:  # a filter alone, or constant-scored
+        f, const = _filter_maker(rng), rng.random() < 0.3
+        return lambda pkg: pkg.ConstantScoreQuery(f(pkg), 2.0) if const else f(pkg)
+    if kind == 13:  # host rows: a nested group, or match-all beside a clause
+        terms, occ = pick(3), OCCURS[int(rng.integers(0, 3))]
+        match_all = rng.random() < 0.3
+
+        def host(pkg):
+            q = pkg.BooleanQuery()
+            if match_all:
+                q.must(pkg.MatchAllDocsQuery())
+                q.should(_term(pkg, terms[0]))
+                return q
+            inner = pkg.BooleanQuery()
+            inner.should(_term(pkg, terms[0]))
+            inner.should(_term(pkg, terms[1]))
+            getattr(q, occ)(inner)
+            q.must(_term(pkg, terms[2]))
+            return q
+        return host
+    if kind == 14:  # host rows: dismax over booleans, or 9 ranges
+        terms, nine = pick(3), rng.random() < 0.4
+        bounds = [(int(x), int(x) + TS_MAX // 2) for x in rng.integers(0, TS_MAX // 2, 9)]
+
+        def host2(pkg):
+            if nine:
+                q = pkg.BooleanQuery()
+                q.should(_term(pkg, terms[0]))
+                for lo, hi in bounds:
+                    q.filter(pkg.PointRangeQuery("ts", lo, hi))
+                return q
+            a = pkg.BooleanQuery()
+            a.should(_term(pkg, terms[0]))
+            a.should(_term(pkg, terms[1]))
+            return pkg.DisjunctionMaxQuery([a, _term(pkg, terms[2])], tie_breaker=0.3)
+        return host2
+    if kind == 15:  # mixed rows with a range FILTER
+        ph, term, f = bigrams[int(rng.integers(0, len(bigrams)))], pick(1)[0], _filter_maker(rng)
+
+        def mixed_range(pkg):
+            q = pkg.BooleanQuery()
+            q.must(pkg.PhraseQuery("body", list(ph)))
+            q.should(_term(pkg, term))
+            q.filter(f(pkg))
+            return q
+        return mixed_range
     if kind == 0:
         w, b = pick(1)[0], float(rng.choice([0.5, 1.0, 2.0]))
         return lambda pkg: _term(pkg, w, b)
@@ -127,23 +206,14 @@ def _row_makers(texts, words):
             j = int(rng.integers(0, len(w) - 1))
             bigrams.append((w[j], w[j + 1]))
     vocab = words + ["zz_missing"]
-    out = []
-    while len(out) < N_ROWS:
-        build = _draw(rng, vocab, bigrams)
-        try:
-            rq = build(T).rewrite()
-        except NotImplementedError:  # _NeedsHostEval too: host evaluation
-            continue
-        if searcher_mod.unported_reason(rq) is None:
-            out.append(build)
-    return out
+    return [_draw(rng, vocab, bigrams) for _ in range(N_ROWS)]
 
 
 @pytest.fixture(scope="module")
 def corpus():
     texts, words = zipf_texts(700, 40, seed=17, lo=3, hi=12)
     texts[349] = texts[699] = " ".join([HOT] * 300 + ["w1"])  # one in each segment
-    return ref_segments(texts, 2), _row_makers(texts, words)
+    return ref_segments(texts, 2, filters=True), _row_makers(texts, words)
 
 
 @pytest.mark.parametrize("decoded", ["0", "1"])
@@ -166,7 +236,7 @@ def test_fuzz_routes_match_reference(corpus, deletes, decoded, monkeypatch):
     got = port_searcher(leaves).search_batch([b(T) for b in makers], k=K_ALL)
     assert_batches_strict(got, want)
     counters = METRICS.snapshot()["counters"]
-    moved = ["route.flat", "route.phrase", "route.mixed"]
+    moved = ["route.flat", "route.phrase", "route.mixed", "route.host", "search.strategy.dense"]
     moved += [] if deletes else ["route.single"]
     moved += ["route.plane_rows", "route.pair_rows"] if decoded == "1" else []
-    assert all(counters.get(name, 0) > 0 for name in moved), counters
+    assert all(counters.get(name, 0) > 0 for name in moved), sorted(counters.items())

@@ -2,8 +2,8 @@
 the reference's modules.
 
 (a) In a subprocess whose import system refuses ``jax``, import
-    rucene_tpu_torch, build a 200-doc index and search it on the CPU: the
-    card's host has no jax.
+    rucene_tpu_torch, build a 200-doc index and search it on the CPU, a
+    filter row and a host row among the rows: the card's host has no jax.
 (b) Drift guard: every host module the port copies from rucene_tpu equals
     its original (syntax tree, module docstring aside) once the import
     prefix is mapped, apart from the definitions its docstring lists under
@@ -37,6 +37,8 @@ COPIED = [
     "index/memory.py",
     "native/__init__.py",
     "ops/combine_tables.py",
+    "search/cache.py",
+    "search/host_engine.py",
     "search/pair_path.py",
     "search/plane_path.py",
     "search/query.py",
@@ -78,8 +80,15 @@ q = T.BooleanQuery()
 q.must(T.TermQuery(T.Term("body", "alpha")))
 q.should(T.TermQuery(T.Term("body", "beta")))
 q.must_not(T.TermQuery(T.Term("body", "eta")))
+inner = T.BooleanQuery()
+inner.should(T.TermQuery(T.Term("body", "zeta")))
+inner.should(T.TermQuery(T.Term("body", "theta")))
+nested = T.BooleanQuery()
+nested.must(inner)
+nested.filter(T.ExistsQuery("body"))
 hits = searcher.search_batch(
-    [T.TermQuery(T.Term("body", "gamma")), q, T.PhraseQuery("body", ["alpha", "beta"])], k=10
+    [T.TermQuery(T.Term("body", "gamma")), q, T.PhraseQuery("body", ["alpha", "beta"]), nested],
+    k=10,
 )
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rucene_tpu"))
 print(json.dumps({
@@ -98,8 +107,9 @@ def test_port_runs_without_jax():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["loaded"] == []
-    (n1, top1), (n2, top2), (n3, top3) = out["hits"]
-    assert n1 > 0 and n2 > 0 and n3 > 0
+    (n1, top1), (n2, top2), (n3, top3), (n4, top4) = out["hits"]
+    assert n1 > 0 and n2 > 0 and n3 > 0 and n4 > 0
+    assert len(top4) == min(10, n4)
     assert len(top3) == min(10, n3)
     assert len(top1) == 10 and len(top2) == min(10, n2)
     assert all(a[1] >= b[1] for a, b in zip(top2, top2[1:]))

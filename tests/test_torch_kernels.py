@@ -425,3 +425,88 @@ def test_mixed_and_score_combine_rows_on_card_match_cpu(card, decoded, monkeypat
     for strategy in ("dense", "candidate"):
         monkeypatch.setenv("RUCENE_STRATEGY", strategy)
         assert_batches_strict(s.search_batch(extras, k=1000), want_extras)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decoded", ["0", "1"])
+def test_filter_and_host_rows_on_card_match_cpu(card, decoded, monkeypatch):
+    """Range, exists and prefix rows (candidate-complete and range-only,
+    on both executor branches), mixed rows with a range and host rows over
+    two segments, one with deletes: the card's TopDocs equal the CPU's
+    under tests/torch_hitcheck.py, the filter planes live on the card, the
+    host rows are counted under route.host, and no plain decode twin runs
+    on the card."""
+    from rucene_tpu_torch.codec.postings import pack_segment
+    from rucene_tpu_torch.index.memory import SegmentBuffer
+
+    rng = np.random.default_rng(13)
+    words = [f"v{i}" for i in range(30)]
+
+    def seg(n):
+        buf = SegmentBuffer()
+        for i in range(n):
+            d = T.Document()
+            d.add(T.TextField("body", " ".join(rng.choice(words, int(rng.integers(3, 30))))))
+            d.add(T.IntPoint("ts", int(rng.integers(0, 1000))))
+            if i % 4 == 0:
+                d.add(T.StringField("tag", f"c{int(rng.integers(0, 100)):02d}"))
+            buf.add_document(d)
+        return pack_segment(buf.finish())
+
+    segs = [seg(1500), seg(900)]
+    live = np.random.default_rng(3).random(segs[1].max_doc) > 0.3
+
+    def t(w):
+        return T.TermQuery(T.Term("body", str(w)))
+
+    def row(*clauses):
+        q = T.BooleanQuery()
+        for occ, sub in clauses:
+            getattr(q, occ)(sub)
+        return q
+
+    def window():
+        lo = int(rng.integers(0, 900))
+        return T.PointRangeQuery("ts", lo, lo + int(rng.integers(1, 300)))
+
+    complete = [row(("must", t(rng.choice(words))), ("filter", window())) for _ in range(8)]
+    complete += [row(("must", t(rng.choice(words))), ("should", t(rng.choice(words))),
+                     ("filter", T.PrefixQuery("tag", f"c{i}"))) for i in range(4)]
+    open_rows = [window() for _ in range(4)]
+    open_rows += [row(("should", t(rng.choice(words))), ("must", T.ExistsQuery("tag"))) for _ in range(4)]
+    open_rows += [row(("should", t(a)), ("should", t(b)), ("must_not", window()))
+                  for a, b in rng.choice(words, (4, 2))]
+    mixed = [row(("must", T.PhraseQuery("body", [str(w) for w in rng.choice(words, 2)])),
+                 ("should", t(rng.choice(words))), ("filter", window())) for _ in range(6)]
+    host = [row(("must", row(("should", t(a)), ("should", t(b)))), ("must", t(c)))
+            for a, b, c in rng.choice(words, (3, 3))]
+    host += [row(("must", T.MatchAllDocsQuery()), ("filter", window())) for _ in range(2)]
+    rows = complete + open_rows + mixed + host
+
+    def searcher(device):
+        return T.IndexSearcher(IndexReader([
+            SegmentSnapshot("a", segs[0]), SegmentSnapshot("b", segs[1], live=live),
+        ]), device=device)
+
+    monkeypatch.setenv("RUCENE_DECODED", decoded)
+    phrase_path._PLANE_CACHE.clear()
+    cpu = searcher("cpu")
+    want, want_complete = cpu.search_batch(rows, k=2000), cpu.search_batch(complete, k=2000)
+    assert max(td.total_hits for td in want) < 2000 and sum(td.total_hits > 0 for td in want) > len(rows) // 2
+    monkeypatch.setattr(cuda_decode, "decode_blocks_plain", _refuse)
+    monkeypatch.setattr(cuda_decode, "decode_score_blocks_plain", _refuse)
+    s = searcher(card)
+    METRICS.reset()
+    got = s.search_batch(rows, k=2000)
+    counters = METRICS.snapshot()["counters"]
+    assert counters.get("route.host", 0) == len(host)
+    assert counters.get("route.mixed", 0) == len(mixed)
+    assert counters.get("search.strategy.dense", 0) > 0
+    assert_batches_strict(got, want)
+    leaf = s.reader.leaves[0]
+    assert s._leaf_plane(leaf, complete[0].rewrite().ranges[0]).device.type == card.type
+    for strategy in ("dense", "candidate"):
+        monkeypatch.setenv("RUCENE_STRATEGY", strategy)
+        METRICS.reset()
+        assert_batches_strict(s.search_batch(complete, k=2000), want_complete)
+        assert METRICS.snapshot()["counters"].get(f"search.strategy.{strategy}", 0) > 0

@@ -15,13 +15,13 @@ scoring term clauses and the phrase); a truncated list must be the
 bit-exact head of the complete one, and the packed run must equal the
 decoded one bit for bit.
 
-Rows outside the slice raise naming their ROADMAP item: a SHOULD phrase,
-slop 1, nine terms or a gap (item 9: the reference's host path) and a
-range clause (item 2: the filter path). So do the two spills the
-reference reruns on its host engine, each counted under
-``search.mixed_host_spill``: a row whose planes admission denied, and a
-row whose term matches meet a plane's overflow column (a phrase past
-PMAX positions).
+Rows outside the mixed route (a SHOULD phrase, slop 1, nine terms or a
+gap) take the host route, as the reference's do, and a range clause
+rides the mixed route as a filter plane; each is answered as the
+reference answers it. So are the two spills the reference reruns on its
+host engine, each counted under ``search.mixed_host_spill``: a row whose
+planes admission denied, and a row whose term matches meet a plane's
+overflow column (a phrase past PMAX positions).
 """
 
 import numpy as np
@@ -221,56 +221,62 @@ def test_mixed_rows_beside_term_and_phrase_rows(index, monkeypatch):
     assert_batches_strict(got, ref_want)
 
 
-def _boundary_rows():
-    """Rows with term clauses and a phrase outside the slice, each with
-    the item that ports it."""
+def _boundary_rows(pkg):
+    """Rows with term clauses and a phrase at the mixed route's edges, each
+    with the route it takes."""
     def row(phrase, occ="must", extra=None):
-        q = T.BooleanQuery()
+        q = pkg.BooleanQuery()
         getattr(q, occ)(phrase)
-        q.should(T.TermQuery(T.Term("body", "w0")))
+        q.should(pkg.TermQuery(pkg.Term("body", "w0")))
         if extra is not None:
             q.filter(extra)
         return q
 
     return {
-        "should_phrase": (row(T.PhraseQuery("body", ["w0", "w1"]), "should"), "item 9"),
-        "slop1": (row(T.PhraseQuery("body", ["w0", "w1"], slop=1)), "item 9"),
-        "nine_terms": (row(T.PhraseQuery("body", ["w0"] * 9)), "item 9"),
-        "gapped": (row(T.PhraseQuery("body", ["w0", "w1"], positions=[0, 2])), "item 9"),
-        "range": (row(T.PhraseQuery("body", ["w0", "w1"]), extra=T.PointRangeQuery("n", 1, 5)),
-                  "item 2"),
+        "should_phrase": (row(pkg.PhraseQuery("body", ["w0", "w1"]), "should"), "route.host"),
+        "slop1": (row(pkg.PhraseQuery("body", ["w0", "w1"], slop=1)), "route.host"),
+        "nine_terms": (row(pkg.PhraseQuery("body", ["w0"] * 9)), "route.host"),
+        "gapped": (row(pkg.PhraseQuery("body", ["w0", "w1"], positions=[0, 2])), "route.host"),
+        "range": (row(pkg.PhraseQuery("body", ["w0", "w1"]),
+                      extra=pkg.PointRangeQuery("n", 1, 5)), "route.mixed"),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_boundary_rows()))
+@pytest.mark.parametrize("name", sorted(_boundary_rows(T)))
 def test_mixed_eligibility_boundaries(name):
-    q, item = _boundary_rows()[name]
-    searcher = _port_searcher(_leaves(1, False))
+    q, route = _boundary_rows(T)[name]
+    leaves = _leaves(1, False)
+    searcher = _port_searcher(leaves)
     rq = q.rewrite()
-    assert not searcher._mixed_device_eligible(rq)
+    assert searcher._mixed_device_eligible(rq) == (route == "route.mixed")
     assert not searcher._phrase_device_eligible(rq)
-    with pytest.raises(NotImplementedError, match=item):
-        searcher.search(q, k=5)
+    want = _ref_searcher(leaves).search_batch([_boundary_rows(R)[name][0]], k=K_ALL)
+    METRICS.reset()
+    got = searcher.search_batch([q], k=K_ALL)
+    assert METRICS.snapshot()["counters"].get(route, 0) == 1
+    assert_batches_strict(got, want)
 
 
 @pytest.mark.parametrize("decoded", ["0", "1"])
 def test_admission_denied_row_raises_item9(decoded, monkeypatch):
     """A row whose phrase planes admission denies (forced: admission on at
     any size, an empty resident set) is the reference's host rerun: it is
-    counted and the batch raises."""
+    counted under search.mixed_host_spill and answered on the host route,
+    equal to the reference."""
     monkeypatch.setenv("RUCENE_DECODED", decoded)
     leaves = _leaves(1, False)
     specs = _row_specs(_texts())[:4]
+    want = _ref_searcher(leaves).search_batch([_query(R, s) for s in specs], k=K_ALL)
     phrase_path._PLANE_CACHE.clear()
     searcher = _port_searcher(leaves)
     searcher.PLANE_ADMIT_MIN_DOCS = 0
     searcher._plane_resident_terms = lambda leaf, field: ((), frozenset())
     METRICS.reset()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        searcher.search_batch([_query(T, s) for s in specs], k=10)
+    got = searcher.search_batch([_query(T, s) for s in specs], k=K_ALL)
     counters = METRICS.snapshot()["counters"]
     assert counters.get("search.mixed_host_spill", 0) == len(specs)
     assert counters.get("search.phrase_plane_denied", 0) > 0
+    assert_batches_strict(got, want)
 
 
 def _overflow_texts():
@@ -284,8 +290,8 @@ def _overflow_texts():
 def test_plane_overflow_row_raises_item9(decoded, monkeypatch):
     """A row whose term matches meet a doc the phrase planes flag for the
     host (ov_count > 0): the reference reruns it on its host engine and
-    counts it; the port counts it the same and raises. A row that misses
-    that doc is served."""
+    counts it; so does the port, and both rows equal the reference's (the
+    row that misses that doc is served on the device)."""
     monkeypatch.setenv("RUCENE_DECODED", decoded)
     leaves = [(_pack(_overflow_texts()), None)]
     hot = ("hot spot".split(), "M", [("M", "w0")])
@@ -296,7 +302,6 @@ def test_plane_overflow_row_raises_item9(decoded, monkeypatch):
     phrase_path._PLANE_CACHE.clear()
     searcher = _port_searcher(leaves)
     METRICS.reset()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        searcher.search_batch([_query(T, hot), _query(T, cold)], k=K_ALL)
+    got = searcher.search_batch([_query(T, hot), _query(T, cold)], k=K_ALL)
     assert METRICS.snapshot()["counters"].get("search.mixed_host_spill", 0) == 1
-    assert_batches_strict([searcher.search(_query(T, cold), k=K_ALL)], want[1:])
+    assert_batches_strict(got, want)

@@ -24,7 +24,7 @@ from rucene_tpu_torch.codec.postings import packed_from_reference
 from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
 from rucene_tpu_torch.native import available as native_available
 from rucene_tpu_torch.search import phrase_path
-from rucene_tpu_torch.search.searcher import unported_reason
+from rucene_tpu_torch.search.searcher import device_row
 from rucene_tpu_torch.util.metrics import METRICS
 from tests.conftest import WORDS, make_docs, random_corpus
 from tests.torch_hitcheck import assert_batches_strict
@@ -175,64 +175,62 @@ def test_route_matches_reference(case, decoded, monkeypatch):
 
 @pytest.mark.parametrize("decoded", ["0", "1"])
 def test_sloppy_overflow_raises_item9(decoded, monkeypatch):
-    """A sloppy row whose candidates overflow the tables has no exact route
-    in the port (the reference evaluates it on the host): it raises."""
+    """A sloppy row whose candidates overflow the tables has no device
+    route and no scalar route: the host engine evaluates it, as in the
+    reference (counted under search.phrase_host_fallback), and its answer
+    equals the reference's."""
     monkeypatch.setenv("RUCENE_DECODED", decoded)
-    reader = IndexReader([SegmentSnapshot("s0", packed_from_reference(_pack(_overflow_texts())))])
+    packed = _pack(_overflow_texts())
+    rows = [("spot", "cold"), ("hot", "spot")]
+    ref = _pin(R.IndexSearcher(RefReader([RefSnapshot("s0", packed)])), CAND)
+    want = ref.search_batch([R.PhraseQuery("body", list(r), slop=1) for r in rows], k=K_ALL)
+    reader = IndexReader([SegmentSnapshot("s0", packed_from_reference(packed))])
     searcher = _pin(T.IndexSearcher(reader, device="cpu"), CAND)
-    assert searcher.search(T.PhraseQuery("body", ["spot", "cold"], slop=1), k=5).total_hits > 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        searcher.search(T.PhraseQuery("body", ["hot", "spot"], slop=1), k=5)
+    METRICS.reset()
+    got = searcher.search_batch([T.PhraseQuery("body", list(r), slop=1) for r in rows], k=K_ALL)
+    assert METRICS.snapshot()["counters"].get("search.phrase_host_fallback", 0) == 1
+    assert got[0].total_hits > 0 and got[1].total_hits > 0
+    assert_batches_strict(got, want)
 
 
-def _phrase_rows():
-    """Rows with phrases: the eligible ones, and one of each unported kind."""
-    mixed = T.BooleanQuery()
-    mixed.must(T.PhraseQuery("body", ["quick", "fox"]))
-    mixed.should(T.TermQuery(T.Term("body", "dog")))
-    should = T.BooleanQuery()
-    should.should(T.PhraseQuery("body", ["quick", "fox"]))
-    filt = T.BooleanQuery()
-    filt.filter(T.PhraseQuery("body", ["quick", "fox"]))
+def _phrase_rows(pkg):
+    """Rows with phrases, each with the route it takes."""
+    mixed = pkg.BooleanQuery()
+    mixed.must(pkg.PhraseQuery("body", ["quick", "fox"]))
+    mixed.should(pkg.TermQuery(pkg.Term("body", "dog")))
+    should = pkg.BooleanQuery()
+    should.should(pkg.PhraseQuery("body", ["quick", "fox"]))
+    filt = pkg.BooleanQuery()
+    filt.filter(pkg.PhraseQuery("body", ["quick", "fox"]))
     return {
-        "exact": (T.PhraseQuery("body", ["quick", "fox"]), None),
-        "sloppy": (T.PhraseQuery("body", ["quick", "fox", "dog"], slop=32), None),
-        "should": (should, None),
-        "eight": (T.PhraseQuery("body", ["the"] * 8), None),
-        "mixed": (mixed, "mixed"),
-        "filter": (filt, "item 9"),
-        "gapped": (T.PhraseQuery("body", ["quick", "fox"], positions=[0, 2]), "item 9"),
-        "nine": (T.PhraseQuery("body", ["the"] * 9), "item 9"),
-        "slop": (T.PhraseQuery("body", ["quick", "fox"], slop=33), "item 9"),
+        "exact": (pkg.PhraseQuery("body", ["quick", "fox"]), "route.phrase"),
+        "sloppy": (pkg.PhraseQuery("body", ["quick", "fox", "dog"], slop=32), "route.phrase"),
+        "should": (should, "route.phrase"),
+        "eight": (pkg.PhraseQuery("body", ["the"] * 8), "route.phrase"),
+        "mixed": (mixed, "route.mixed"),
+        "filter": (filt, "route.host"),
+        "gapped": (pkg.PhraseQuery("body", ["quick", "fox"], positions=[0, 2]), "route.host"),
+        "nine": (pkg.PhraseQuery("body", ["the"] * 9), "route.host"),
+        "slop": (pkg.PhraseQuery("body", ["quick", "fox"], slop=33), "route.host"),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_phrase_rows()))
+@pytest.mark.parametrize("name", sorted(_phrase_rows(T)))
 def test_phrase_routing_agrees_with_unported_reason(name):
-    """A row with phrases takes the phrase route exactly when
-    unported_reason lets it through; the rest raise, naming their item."""
-    q, item = _phrase_rows()[name]
+    """A row with phrases takes the phrase route, the mixed route or the
+    host route as the reference routes it (never the device rows' path),
+    counted, and is answered as the reference answers it."""
+    q, route = _phrase_rows(T)[name]
     packed = _pack(_texts(n=50))
     searcher = T.IndexSearcher(
         IndexReader([SegmentSnapshot("s0", packed_from_reference(packed))]), device="cpu",
     )
     rq = q.rewrite()
-    assert searcher._phrase_device_eligible(rq) == (item is None)
-    assert searcher._mixed_device_eligible(rq) == (item == "mixed")
-    why = unported_reason(rq)
-    if item == "mixed":  # term clauses plus one exact phrase: served, as the reference does
-        assert why is None
-        ref = R.IndexSearcher(RefReader([RefSnapshot("s0", packed)]))
-        ref_q = R.BooleanQuery()
-        ref_q.must(R.PhraseQuery("body", ["quick", "fox"]))
-        ref_q.should(R.TermQuery(R.Term("body", "dog")))
-        METRICS.reset()
-        assert_batches_strict([searcher.search(q, k=K_ALL)], [ref.search(ref_q, k=K_ALL)])
-        assert METRICS.snapshot()["counters"].get("route.mixed", 0) == 1
-    elif item is None:
-        assert why is None
-        searcher.search(q, k=5)
-    else:
-        assert item in why
-        with pytest.raises(NotImplementedError, match=item):
-            searcher.search(q, k=5)
+    assert not device_row(rq)
+    assert searcher._phrase_device_eligible(rq) == (route == "route.phrase")
+    assert searcher._mixed_device_eligible(rq) == (route == "route.mixed")
+    ref = R.IndexSearcher(RefReader([RefSnapshot("s0", packed)]))
+    METRICS.reset()
+    got = searcher.search(q, k=K_ALL)
+    assert METRICS.snapshot()["counters"].get(route, 0) == 1
+    assert_batches_strict([got], [ref.search(_phrase_rows(R)[name][0], k=K_ALL)])

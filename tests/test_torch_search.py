@@ -143,8 +143,8 @@ def test_search_and_async_agree(index):
 
 
 def _unported(pkg):
-    """Rows beyond plain term / boolean rows, each with the ROADMAP item
-    that ports it, or None for a kind the port now serves."""
+    """Rows beyond plain term / boolean rows, each with the route counter
+    it moves."""
     nested = pkg.BooleanQuery()
     inner = pkg.BooleanQuery()
     inner.should(pkg.TermQuery(pkg.Term("body", "fox")))
@@ -155,35 +155,36 @@ def _unported(pkg):
     mixed_phrase.must(pkg.PhraseQuery("body", ["quick", "fox"]))
     mixed_phrase.should(pkg.TermQuery(pkg.Term("body", "dog")))
     return {
-        "mixed_phrase": (mixed_phrase, None),
-        "range": (pkg.PointRangeQuery("n", 1, 5), "item 2"),
-        "exists": (pkg.ExistsQuery("body"), "item 2"),
-        "match_all": (pkg.MatchAllDocsQuery(), None),
+        "mixed_phrase": (mixed_phrase, "route.mixed"),
+        "range": (pkg.PointRangeQuery("n", 1, 5), "route.device"),
+        "exists": (pkg.ExistsQuery("body"), "route.device"),
+        "match_all": (pkg.MatchAllDocsQuery(), "route.device"),
         "dismax": (pkg.DisjunctionMaxQuery(
             [pkg.TermQuery(pkg.Term("body", "fox")), pkg.TermQuery(pkg.Term("body", "dog"))],
             tie_breaker=0.1,
-        ), None),
-        "const": (pkg.ConstantScoreQuery(pkg.TermQuery(pkg.Term("body", "fox")), 2.0), None),
-        "group": (nested, "item 9"),
+        ), "route.device"),
+        "const": (pkg.ConstantScoreQuery(pkg.TermQuery(pkg.Term("body", "fox")), 2.0),
+                  "route.device"),
+        "group": (nested, "route.host"),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_unported(T)))
 def test_unported_rows_raise(index, name):
-    """Each kind beside a term row: the kinds this slice serves match the
-    reference (complete lists, and a truncated list is the complete one's
-    head); the rest raise naming their ROADMAP item."""
+    """Each kind beside a term row matches the reference (complete lists,
+    and a truncated list is the complete one's head) on its route: range
+    and exists rows on the device path, a nested group on the host route.
+    None raises."""
     port, *_, ref = index
-    q, item = _unported(T)[name]
+    q, route = _unported(T)[name]
     rows = [T.TermQuery(T.Term("body", "fox")), q]
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            port().search_batch(rows, k=5)
-        return
     ref_rows = [R.TermQuery(R.Term("body", "fox")), _unported(R)[name][0]]
     want = ref.search_batch(ref_rows, k=K_ALL, prune=False)
     searcher = port()
+    METRICS.reset()
     got = searcher.search_batch(rows, k=K_ALL)
+    counters = METRICS.snapshot()["counters"]
+    assert counters.get(route, 0) == 1 + (route == "route.device")
     assert_batches_strict(got, want)
     for h, full in zip(searcher.search_batch(rows, k=5), got):
         assert h.total_hits == full.total_hits

@@ -1,5 +1,6 @@
 """Shared inputs of the port's pair and tf-plane route tests
-(tests/test_torch_pair.py, tests/test_torch_planes.py).
+(tests/test_torch_pair.py, tests/test_torch_planes.py) and of the
+differential fuzz (tests/test_torch_fuzz.py).
 
 A small Zipf corpus packed by rucene_tpu, carried into the port with
 packed_from_reference, the same rows built with each package's query
@@ -40,18 +41,31 @@ def zipf_texts(n_docs: int, vocab: int, seed: int, lo: int = 3, hi: int = 8):
     return texts, words
 
 
-def ref_segments(texts, n_segments: int = 1, title: bool = False):
+TS_MAX = 1000  # the filter fields' point values lie in [0, TS_MAX)
+
+
+def ref_segments(texts, n_segments: int = 1, title: bool = False, filters: bool = False):
     """rucene_tpu PackedSegments over ``texts`` split into n_segments;
-    ``title`` adds a second field holding each doc's first word."""
+    ``title`` adds a second field holding each doc's first word;
+    ``filters`` gives every doc an IntPoint ``ts`` in [0, TS_MAX) and one
+    doc in 3 a StringField ``tag`` (c00-c29), drawn from a fixed seed."""
+    rng = np.random.default_rng(99)
+    ts = rng.integers(0, TS_MAX, len(texts))
+    tag = rng.integers(0, 30, len(texts))
     per = len(texts) // n_segments
     out = []
     for s in range(n_segments):
         buf = SegmentBuffer()
-        for t in texts[s * per : (s + 1) * per]:
+        for i in range(s * per, (s + 1) * per):
+            t = texts[i]
             d = R.Document()
             d.add(R.TextField("body", t))
             if title:
                 d.add(R.TextField("title", t.split()[0]))
+            if filters:
+                d.add(R.IntPoint("ts", int(ts[i])))
+                if i % 3 == 0:
+                    d.add(R.StringField("tag", f"c{tag[i]:02d}"))
             buf.add_document(d)
         out.append(pack_segment(buf.finish()))
     return out
