@@ -87,7 +87,16 @@ Builds the CUDA kernels and the native library from this checkout, then:
      bit; 16 rows of A and the 16 host rows equal to the CPU run; route.host
      exactly 16 in C (and 0 in the bench mix). Logs each stage's QPS, A's
      kernel time and busy share, the dense batch's peak a (row, doc), the
-     filter planes cached and the host stage's seconds.
+     filter planes cached and the host stage's seconds;
+ 12. NRT on the card (serve_nrt, after phases 1-11's device state is
+     released), in the shape of bench.py's main_nrt at its defaults: the
+     write path (IndexWriter, SearcherManager, deletes by term and by
+     query, a merging refresh, FSDirectory, open_directory_reader,
+     check_index) under a 45 s serving window with ingest; its gates and
+     figures are in serve_nrt's docstring, and its kernel launches count
+     in the kernels' JSON rows. It also holds K1 and K3 at a flush
+     segment's shapes against their plain twins (nrt_kernel_replay; the
+     figures under ``nrt.replay``, K3's error in its row's max_abs_err).
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
@@ -97,8 +106,9 @@ JSON record (with qps, packed_qps, qps_no_phrase, tf_plane_mib,
 pair_rows, plane_rows, phase 10's mixed_qps, mixed_packed_qps,
 extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc), and
 phase 11's filter_qps, filter_packed_qps, filter_kernel_ms_busy,
-filter_planes and host_rows), the card's name and power limit, and the
-device line.
+filter_planes and host_rows, and phase 12's figures under ``nrt`` with
+its launches under ``nrt_launches``), the card's name and power limit,
+and the device line.
 """
 
 from __future__ import annotations
@@ -876,6 +886,467 @@ def serve_filter_rows(searchers, cpu_searcher, stage_a, stage_b, host_q, card, f
     return out
 
 
+# --- phase 12: NRT on the card (bench.py:519-640 main_nrt, its defaults) -----
+
+NRT_BASE = 200_000  # base docs through the writer
+NRT_EXTRA = 50_000  # corpus docs past the base: the warm refresh and the ingest
+NRT_QUERIES = 256
+NRT_BATCH = 128
+NRT_REFRESH_S = 0.5
+NRT_RATE = 2000  # ingest docs a second
+NRT_CHUNK = 250  # docs an add_documents call, beside one marker doc
+NRT_COMMIT_EVERY = 2000  # ingested docs between two commits
+NRT_WARM = 2000  # docs of the warm refresh
+NRT_DEAD_MARKERS = 64
+NRT_DEAD_RANK = 3000  # the bench rank of the body word deleted by query
+NRT_MERGE_TO = 9  # force_merge's target after the window: the flush segments merge into one
+NRT_SECONDS = 45.0  # the serving window
+
+
+def plane_bytes_off(leaves) -> int:
+    """Bytes of phrase position planes on the card held for segments that
+    none of ``leaves`` serves (freed segments whose planes the next plane
+    fetch drops included)."""
+    from rucene_tpu_torch.search import phrase_path
+
+    live = {id(lf.packed) for lf in leaves}
+    return sum(
+        plane.numel() * plane.element_size() + (0 if ov is None else ov.numel())
+        for plane, ov, ref in list(phrase_path._PLANE_CACHE.values())
+        if plane.is_cuda and (ref() is None or id(ref()) not in live)
+    )
+
+
+def nrt_kernel_replay(searcher, leaf, dense_q, dev) -> dict:
+    """K1 and K3 at an NRT flush segment's shapes against their plain
+    twins on the same inputs. K1: the decoded residency the decode kernel
+    built for ``leaf`` on the main path, every block bit for bit against
+    the twin on the CPU (left out when the leaf is served packed). K3: the
+    combine call of the head-band pair rows ``dense_q`` on the leaf's dense
+    branch, kernel and twin on ``dev``: counts equal, scores within 1e-5
+    relative. Returns each kernel's figures; the K3 replay's one launch is
+    not a main-path launch."""
+    from rucene_tpu_torch.codec.device import build_device_segment
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+
+    out = {"segment": leaf.name, "max_doc": leaf.max_doc}
+    gdev = leaf.device
+    if gdev.docs_dec is not None:
+        cpu_seg = build_device_segment(leaf.packed, "cpu")
+        want = cuda_decode.decode_blocks_plain(
+            cpu_seg.data, cpu_seg.blk_off, cpu_seg.blk_doc_bits, cpu_seg.blk_freq_bits,
+            cpu_seg.blk_base, cpu_seg.blk_count, freq_dtype=gdev.freqs_dec.dtype,
+        )
+        for got, ref in zip((gdev.docs_dec, gdev.freqs_dec, gdev.norm_dec), want):
+            if not torch.equal(got.cpu(), ref):
+                raise AssertionError(f"decode kernel differs from its twin on NRT segment {leaf.name}")
+        out["decode_blocks"] = {"blocks": leaf.packed.num_blocks, "max_abs_err": 0}
+    _q, cb, target, sc, _valid = head_band_combine_call(searcher, dense_q, leaf)
+    shape = (len(dense_q), gdev.max_doc_padded)
+    args = (cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc)
+    out_k = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
+    out_p = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
+    cuda_combine.combine_lanes(*args, *out_k)
+    cuda_combine.combine_lanes_plain(*args, *out_p)
+    if not torch.equal(out_k[1], out_p[1]):
+        raise AssertionError(f"combine kernel counts differ from the twin on NRT segment {leaf.name}")
+    err = float((out_k[0] - out_p[0]).abs().max())
+    tol = 1e-5 * float(out_p[0].abs().max().clamp(min=1.0))
+    if err > tol:
+        raise AssertionError(f"combine kernel scores differ from the twin by {err} > {tol} "
+                             f"on NRT segment {leaf.name}")
+    out["combine_lanes"] = {"entries": int(cb.e_item.numel()), "rows": shape[0],
+                            "max_doc_padded": shape[1], "max_abs_err": err}
+    return out
+
+
+def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
+              n_base: int = NRT_BASE) -> dict:
+    """Phase 12: NRT on the card, in the shape of bench.py main_nrt at its
+    defaults (BASELINE.json config 4). The corpus is build_corpus(n_base +
+    50,000) (seed 7); its first ``n_base`` docs (200,000 by default) go
+    through the port's IndexWriter into
+    a RAMDirectory (max_buffered_docs 25,000, TieredMergePolicy with 64
+    segments a tier, no merge on commit) and are committed; 256 queries
+    from build_queries (phrase texts from the first 5,000 docs) serve in
+    batches of 128 at k=100 through a SearcherManager on ``dev``. A warm
+    pass, a warm refresh of 2,000 docs, then a serving window of
+    ``seconds`` (45 by default): an ingest thread adds 250-doc
+    chunks, each beside one marker doc with a token of its own, at 2,000
+    docs a second and commits every 2,000 docs; the foreground refreshes
+    every 0.5 s and serves batches. The ingest thread only calls the
+    writer: device forms are built by the serving thread, in search_batch.
+
+    Gates (each raises): after each refresh the reader's num_docs covers
+    every commit acknowledged before it; at the end (stop, commit,
+    refresh) one batch of marker TermQuerys finds each marker once;
+    route.host stays 0; the device builds equal the segments served for
+    the first time. Then 64 markers are deleted by term and the body word
+    of bench rank 3,000 by query, and a refresh: those rows find nothing,
+    the refresh builds no device form, and the 16 sampled rows (two of
+    each bench kind) equal a CPU reader opened with open_directory_reader
+    on the committed directory. Then a merging refresh (force_merge into
+    9 segments: the flush segments become one): a searcher acquired
+    before it answers its 16 rows bit for bit the same after it, the new
+    searcher equals the CPU reader over the merged commit, and only the
+    merged segment is built on the card. Then, with the phase's counts
+    read, nrt_kernel_replay holds K1 and K3 at the shapes of the smallest
+    flush segment against their plain twins. Last, the on-disk stage: the
+    base docs committed by the port's writer into an FSDirectory under a
+    temporary directory, opened with open_directory_reader on the card,
+    answer the 16 rows as the in-memory base reader did, bit for bit;
+    tools/check_index finds the index clean, and a copy with one byte of
+    a segment file flipped raises CorruptIndexError (``disk=False`` skips
+    this stage).
+
+    Returns the phase's figures (QPS, ingest rate, refreshes and their
+    times, batch latencies, leaves, merges, device builds, peak memory,
+    plane bytes held for segments no reader serves, kernel launches, the
+    replay's figures)."""
+    import gc
+    import shutil
+    import tempfile
+    import threading
+
+    from rucene_tpu_torch import (
+        CorruptIndexError,
+        Document,
+        FSDirectory,
+        IndexSearcher,
+        IndexWriter,
+        IndexWriterConfig,
+        RAMDirectory,
+        SearcherManager,
+        StringField,
+        Term,
+        TermQuery,
+        TextField,
+        TieredMergePolicy,
+        open_directory_reader,
+    )
+    from rucene_tpu_torch.codec import files as segfiles
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.tools.check_index import check_index
+    from rucene_tpu_torch.util.metrics import METRICS
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
+
+    t = time.perf_counter()
+    texts, vocab, probs = build_corpus(n_base + NRT_EXTRA)
+    queries = build_queries(NRT_QUERIES, vocab, probs, phrase_texts=texts[:5000])
+    sample_idx = [i for kind in range(8) for i in (kind, kind + 8 * (NRT_QUERIES // 8 - 1))]
+    sample = [queries[i] for i in sample_idx]
+    log(f"NRT corpus of {len(texts)} docs and {len(queries)} queries in {time.perf_counter() - t:.1f}s")
+
+    def docs_of(lo, hi):
+        out = []
+        for text in texts[lo:hi]:
+            d = Document()
+            d.add(TextField("body", text))
+            out.append(d)
+        return out
+
+    def writer_on(directory):
+        return IndexWriter(directory, IndexWriterConfig(
+            max_buffered_docs=25_000, merge_policy=TieredMergePolicy(segs_per_tier=64),
+            merge_on_commit=False,
+        ))
+
+    def compare(got, want, where):
+        for i, g, x in zip(sample_idx, got, want):
+            try:
+                assert_topdocs_strict(g, x)
+            except AssertionError as e:
+                raise AssertionError(f"{where}: query {i}: {e}") from None
+
+    def same_bits(got, want, where):
+        for i, g, x in zip(sample_idx, got, want):
+            if g.total_hits != x.total_hits or g.score_docs != x.score_docs:
+                raise AssertionError(f"{where}: query {i} differs")
+
+    served: set = set()  # segments a searcher served in this phase
+
+    def run(searcher, rows):
+        served.update(lf.name for lf in searcher.reader.leaves)
+        return searcher.search_batch(rows, k=K)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    METRICS.reset()  # the phase's counts
+    t = time.perf_counter()
+    ram = RAMDirectory()
+    w = writer_on(ram)
+    w.add_documents(docs_of(0, n_base))
+    w.commit()
+    index_s = time.perf_counter() - t
+    mgr = SearcherManager(w, searcher_factory=lambda r: IndexSearcher(r, device=dev))
+    s0 = mgr.acquire()
+    log(f"NRT base index: {n_base} docs through the writer in {index_s:.1f}s, "
+        f"{len(s0.reader.leaves)} segments")
+    t = time.perf_counter()
+    for i in range(0, NRT_QUERIES, NRT_BATCH):  # warm, as bench.py
+        run(s0, queries[i : i + NRT_BATCH])
+    base_answers = run(s0, sample)  # the on-disk stage's reference
+    mgr.release(s0)
+    w.add_documents(docs_of(n_base, n_base + NRT_WARM))
+    w.commit()
+    mgr.maybe_refresh()
+    s0 = mgr.acquire()
+    for i in range(0, NRT_QUERIES, NRT_BATCH):
+        run(s0, queries[i : i + NRT_BATCH])
+    mgr.release(s0)
+    torch.cuda.synchronize()
+    log(f"NRT warm passes and warm refresh in {time.perf_counter() - t:.1f}s")
+
+    stop = threading.Event()
+    state = {"ingested": 0, "markers": 0, "acked": n_base + NRT_WARM, "commits": 0, "error": None}
+
+    def ingest():
+        try:
+            i = n_base + NRT_WARM
+            while not stop.is_set() and i < len(texts):
+                t0 = time.perf_counter()
+                docs = docs_of(i, i + NRT_CHUNK)
+                marker = Document()
+                marker.add(StringField("marker", f"m{state['markers']}"))
+                w.add_documents(docs + [marker])
+                i += len(docs)
+                state["ingested"] += len(docs)
+                state["markers"] += 1
+                if state["ingested"] % NRT_COMMIT_EVERY < NRT_CHUNK:
+                    w.commit()
+                    state["commits"] += 1
+                    state["acked"] = n_base + NRT_WARM + state["ingested"] + state["markers"]
+                time.sleep(max(0.0, len(docs) / NRT_RATE - (time.perf_counter() - t0)))
+        except BaseException as e:  # raised by the foreground
+            state["error"] = e
+
+    lat, first_lat, refresh_ms, to_first, leaves_at = [], [], [], [], []
+    refreshes = changed_refreshes = 0
+    served_q = qi = 0
+    pending = None  # start of a refresh whose first batch has not run yet
+    th = threading.Thread(target=ingest, daemon=True)
+    t0 = time.perf_counter()
+    last = t0
+    th.start()
+    while time.perf_counter() - t0 < seconds:
+        if time.perf_counter() - last >= NRT_REFRESH_S:
+            acked = state["acked"]
+            r0 = time.perf_counter()
+            changed = mgr.maybe_refresh()
+            refresh_ms.append((time.perf_counter() - r0) * 1e3)
+            refreshes += 1
+            last = time.perf_counter()
+            s = mgr.acquire()
+            if s.reader.num_docs < acked:
+                raise AssertionError(f"refresh {refreshes}: {s.reader.num_docs} docs, "
+                                     f"{acked} acknowledged before it")
+            mgr.release(s)
+            if changed:
+                changed_refreshes += 1
+                pending = r0
+        s = mgr.acquire()
+        b0 = time.perf_counter()
+        rows = queries[qi : qi + NRT_BATCH]
+        run(s, rows)
+        b_ms = (time.perf_counter() - b0) * 1e3
+        mgr.release(s)
+        lat.append(b_ms)
+        leaves_at.append(len(s.reader.leaves))
+        if pending is not None:
+            first_lat.append(b_ms)
+            to_first.append((time.perf_counter() - pending) * 1e3)
+            pending = None
+        served_q += len(rows)
+        qi = (qi + NRT_BATCH) % NRT_QUERIES
+    wall = time.perf_counter() - t0
+    stop.set()
+    th.join(timeout=60)
+    if th.is_alive() or state["error"] is not None:
+        raise AssertionError(f"the ingest thread failed: {state['error']!r}")
+    leaves_window = len(mgr.acquire().reader.leaves)
+    nrt_qps = served_q / wall
+    ingest_docs_s = state["ingested"] / wall
+    # batch time against the leaves it walked: the per-leaf cost that a
+    # combined multi-segment view would take away
+    per_leaf_ms, base_ms = np.polyfit(leaves_at, lat, 1)
+    log(f"NRT window: {nrt_qps:.1f} QPS over {wall:.1f}s ({served_q} queries, batch {NRT_BATCH}, "
+        f"k={K}) on {card}; ingested {state['ingested']} docs ({ingest_docs_s:.0f}/s) and "
+        f"{state['markers']} markers in {state['commits']} commits; {refreshes} refreshes "
+        f"({changed_refreshes} with changes), mean {np.mean(refresh_ms):.1f} ms, max "
+        f"{np.max(refresh_ms):.1f} ms; batch p50 {np.percentile(lat, 50):.1f} ms, p99 "
+        f"{np.percentile(lat, 99):.1f} ms; first batch after a refresh p50 "
+        f"{np.percentile(first_lat, 50):.1f} ms, refresh to first batch mean "
+        f"{np.mean(to_first):.1f} ms, max {np.max(to_first):.1f} ms; {leaves_window} leaves; "
+        f"batch ms = {base_ms:.1f} + {per_leaf_ms:.2f} a leaf (least squares over "
+        f"{min(leaves_at)}-{max(leaves_at)} leaves)")
+
+    # acknowledged writes read back
+    w.commit()
+    mgr.maybe_refresh()
+    s = mgr.acquire()
+    n_markers = state["markers"]
+    want_docs = n_base + NRT_WARM + state["ingested"] + n_markers
+    if s.reader.num_docs != want_docs:
+        raise AssertionError(f"{s.reader.num_docs} docs after the final refresh, {want_docs} added")
+    marks = run(s, [TermQuery(Term("marker", f"m{j}")) for j in range(n_markers)])
+    if [td.total_hits for td in marks] != [1] * n_markers:
+        bad = [j for j, td in enumerate(marks) if td.total_hits != 1]
+        raise AssertionError(f"markers not found exactly once: {bad[:10]}")
+    counters = METRICS.snapshot()["counters"]
+    builds = window_builds = counters.get("reader.device_builds", 0)
+    if counters.get("route.host", 0):
+        raise AssertionError(f"route.host={counters['route.host']} in the NRT bench mix")
+    if builds != len(served):
+        raise AssertionError(f"{builds} device builds for {len(served)} segments served")
+    log(f"NRT: {n_markers} markers found once each in {len(s.reader.leaves)} leaves; "
+        f"{builds} device builds for {len(served)} segments served; route.host 0")
+
+    # deletes reach every route; a delete refresh builds nothing
+    step = max(1, n_markers // NRT_DEAD_MARKERS)
+    dead = [f"m{j}" for j in range(0, n_markers, step)][:NRT_DEAD_MARKERS]
+    dead_word = str(vocab[NRT_DEAD_RANK])
+    for m in dead:
+        w.delete_documents_by_term(Term("marker", m))
+    w.delete_documents_by_query(TermQuery(Term("body", dead_word)))
+    w.commit()
+    mgr.maybe_refresh()
+    s = mgr.acquire()
+    gone = run(s, [TermQuery(Term("marker", m)) for m in dead] + [TermQuery(Term("body", dead_word))])
+    if any(td.total_hits for td in gone):
+        raise AssertionError("a deleted marker or the deleted word still matches on the card")
+    del_builds = METRICS.snapshot()["counters"].get("reader.device_builds", 0) - builds
+    if del_builds:
+        raise AssertionError(f"the delete refresh built {del_builds} device forms")
+    deleted = s.reader.max_doc - s.reader.num_docs
+    card_sample = run(s, sample)
+    t = time.perf_counter()
+    cpu = IndexSearcher(open_directory_reader(ram), device="cpu")
+    compare(card_sample, cpu.search_batch(sample, k=K), "after the deletes")
+    log(f"NRT deletes: {len(dead)} markers and {dead_word!r} ({deleted} docs) gone on the card, "
+        f"no device build; 16 rows equal a CPU reader over the commit "
+        f"({time.perf_counter() - t:.1f}s)")
+    del cpu
+
+    # a merging refresh: the searcher acquired before it keeps its answers
+    s_old = mgr.acquire()
+    old_answers = run(s_old, sample)
+    builds = METRICS.snapshot()["counters"].get("reader.device_builds", 0)
+    t = time.perf_counter()
+    w.force_merge(NRT_MERGE_TO)
+    w.commit()
+    merge_s = time.perf_counter() - t
+    mgr.maybe_refresh()
+    s_new = mgr.acquire()
+    new_names = {lf.name for lf in s_new.reader.leaves} - served
+    new_answers = run(s_new, sample)
+    same_bits(s_old.search_batch(sample, k=K), old_answers, "the searcher held across the merge")
+    merge_builds = METRICS.snapshot()["counters"].get("reader.device_builds", 0) - builds
+    if merge_builds != len(new_names):
+        raise AssertionError(f"the merging refresh built {merge_builds} forms for "
+                             f"{len(new_names)} new segments")
+    cpu = IndexSearcher(open_directory_reader(ram), device="cpu")
+    compare(new_answers, cpu.search_batch(sample, k=K), "after the merge")
+    del cpu, s_old
+    gc.collect()
+    run(s_new, queries[:NRT_BATCH])  # a plane fetch drops the planes of freed segments
+    dead_plane_bytes = plane_bytes_off(s_new.reader.leaves)
+    counters = METRICS.snapshot()["counters"]
+    merges = counters.get("writer.merges", 0)
+    leaves_end = len(s_new.reader.leaves)
+    log(f"NRT merge: {leaves_window} -> {leaves_end} leaves in {merge_s:.1f}s ({merges} merges), "
+        f"{merge_builds} device build; the searcher acquired before it answers bit for bit as "
+        f"before; 16 rows equal the CPU reader; phrase planes held for segments no reader serves: "
+        f"{dead_plane_bytes} bytes on the card")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {
+        "decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0),
+        "decode_score_blocks": counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0),
+        "combine_lanes": counters.get(cuda_combine.LAUNCH_COUNTER, 0),
+    }
+    # K1 and K3 at a flush segment's shapes (the smallest leaf the delete
+    # refresh served) against their twins, after the phase's counts are read
+    small = min(s.reader.leaves, key=lambda lf: lf.max_doc)
+    replay = nrt_kernel_replay(s, small, head_pair_queries(vocab), dev)
+    log(f"NRT kernels at segment {small.name}'s shapes ({small.max_doc} docs): "
+        + ("decode kernel bit-equal to the twin over "
+           f"{replay['decode_blocks']['blocks']} blocks; " if "decode_blocks" in replay else "")
+        + f"combine kernel matches the twin ({replay['combine_lanes']['entries']} entries, "
+        f"{replay['combine_lanes']['rows']} rows x {replay['combine_lanes']['max_doc_padded']} docs, "
+        f"max abs err {replay['combine_lanes']['max_abs_err']:.3g})")
+    del s_new, s
+    w.close()
+    mgr = w = None
+
+    figures = {
+        "nrt_qps": nrt_qps, "ingest_docs_s": ingest_docs_s, "refreshes": refreshes,
+        "refreshes_changed": changed_refreshes,
+        "refresh_ms": [float(np.mean(refresh_ms)), float(np.max(refresh_ms))],
+        "batch_ms_p50_p99": [float(np.percentile(lat, 50)), float(np.percentile(lat, 99))],
+        "first_batch_ms_p50_max": [float(np.percentile(first_lat, 50)), float(np.max(first_lat))],
+        "refresh_to_first_batch_ms": [float(np.mean(to_first)), float(np.max(to_first))],
+        "batch_ms_fit": [float(base_ms), float(per_leaf_ms)],
+        "leaves": [leaves_window, leaves_end], "merges": merges,
+        "device_builds": window_builds + merge_builds, "peak_gib": peak_gib,
+        "dead_plane_bytes": dead_plane_bytes, "launches": launches, "replay": replay,
+        "markers": n_markers, "deleted_docs": deleted, "index_s": index_s, "merge_s": merge_s,
+        "decoded": os.environ.get("RUCENE_DECODED", "auto"),
+    }
+    log(f"NRT kernel launches in the phase: {launches}; peak {peak_gib:.2f} GiB")
+    # fresh segments are built through the decode kernel, or served packed
+    # through the scoring decode
+    kernel = "decode_score_blocks" if figures["decoded"] == "0" else "decode_blocks"
+    if launches[kernel] <= 0:
+        raise AssertionError(f"kernel {kernel} never launched in the NRT phase")
+    if not disk:
+        return figures
+
+    # the on-disk stage
+    tmp = tempfile.mkdtemp(prefix="rtt_nrt_")
+    try:
+        t = time.perf_counter()
+        fs = FSDirectory(os.path.join(tmp, "index"))
+        fw = writer_on(fs)
+        fw.add_documents(docs_of(0, n_base))
+        fw.commit()
+        fw.close()
+        disk_write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        on_disk = IndexSearcher(open_directory_reader(fs), device=dev)
+        same_bits(on_disk.search_batch(sample, k=K), base_answers, "the on-disk reader")
+        disk_open_s = time.perf_counter() - t
+        del on_disk
+        t = time.perf_counter()
+        st = check_index(fs)
+        if not st.clean:
+            raise AssertionError("check_index: " + st.render())
+        check_s = time.perf_counter() - t
+        bad_dir = os.path.join(tmp, "flipped")
+        shutil.copytree(fs.path, bad_dir)
+        seg = max((n for n in os.listdir(bad_dir) if n.endswith(".seg")),
+                  key=lambda n: os.path.getsize(os.path.join(bad_dir, n)))
+        with open(os.path.join(bad_dir, seg), "r+b") as f:
+            f.seek(os.path.getsize(os.path.join(bad_dir, seg)) // 2)
+            b = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([b[0] ^ 0x01]))
+        try:
+            segfiles.read_segment(FSDirectory(bad_dir), seg[: -len(".seg")], lazy=False)
+        except CorruptIndexError:
+            pass
+        else:
+            raise AssertionError(f"a flipped byte in {seg} went unnoticed")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"NRT on disk: the port's writer committed {n_base} docs to an FSDirectory in "
+        f"{disk_write_s:.1f}s; open_directory_reader served the 16 rows on the card bit for bit "
+        f"as the in-memory base reader ({disk_open_s:.1f}s); check_index clean ({check_s:.1f}s); "
+        f"a flipped byte in {seg} raised CorruptIndexError")
+    figures["check_index_s"] = check_s
+    return figures
+
+
 def single_k2_call(searcher, batch):
     """The scoring decode call the searcher makes for ``batch``'s single-term
     rows on its packed leaf: (data, off, dbits, fbits, base, count, fid,
@@ -911,10 +1382,11 @@ def single_k2_call(searcher, batch):
     )
 
 
-def head_band_combine_call(searcher, dense_q):
+def head_band_combine_call(searcher, dense_q, leaf=None):
     """The combine call the searcher makes for the head-band pair rows
-    ``dense_q`` on its (packed) leaf: (FlatQueryBatch, CombineBatch,
-    target i32[W,128], sc f32[W,128], valid bool[W,128]), the lanes as
+    ``dense_q`` on ``leaf`` (its first leaf by default) when they take the
+    flat executor's dense branch: (FlatQueryBatch, CombineBatch, target
+    i32[W,128], sc f32[W,128], valid bool[W,128]), the lanes as
     decode_score_lanes returns them."""
     from rucene_tpu_torch.search import executor, flat_tables
 
@@ -925,7 +1397,7 @@ def head_band_combine_call(searcher, dense_q):
     weight, occur, n_req, min_sh, _ma, _bo = flat_tables.build_clause_tables(
         rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
     )
-    leaf = searcher.reader.leaves[0]
+    leaf = searcher.reader.leaves[0] if leaf is None else leaf
     gdev = leaf.device
     bs, bc, fid = flat_tables.build_leaf_tables(leaf, rqs, b, 2, plans=plans)
     work = flat_tables.build_flat_work(bs, bc, weight, fid, occur)[:6]
@@ -1296,24 +1768,36 @@ def main() -> int:
     )
     del cpu_reader, cpu_searcher
 
+    # 12. NRT on the card, after releasing phases 1-11's device state
+    del searcher, packed_searcher, reader, leaf, gdev, tf_planes, pdev, k2_args, got, want
+    del items, item_row, item_enc, lanes, keep
+    from rucene_tpu_torch.search.cache import DEVICE_PLANE_CACHE
+
+    phrase_path._PLANE_CACHE.clear()
+    DEVICE_PLANE_CACHE.clear()
+    p12 = serve_nrt(dev, card)
+    nrt_launches = p12.pop("launches")
+    k3_err = max(k3_err, p12["replay"]["combine_lanes"]["max_abs_err"])
+
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
          "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"]
-         + p11["launches"]["decode_blocks"],
+         + p11["launches"]["decode_blocks"] + nrt_launches["decode_blocks"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
          "launches": k2_launches + p10["launches"]["decode_score_blocks"]
-         + p11["launches"]["decode_score_blocks"],
+         + p11["launches"]["decode_score_blocks"] + nrt_launches["decode_score_blocks"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
-         "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"],
+         "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"]
+         + nrt_launches["combine_lanes"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
@@ -1331,7 +1815,8 @@ def main() -> int:
         "filter_kernel_ms_busy": [p11["decoded_profile"], p11["packed_profile"]],
         "filter_dense_bytes_per_row_doc": p11["dense_bytes_per_row_doc"],
         "filter_planes": p11["planes"], "host_rows": len(host_q),
-        "host_s": [p11["decoded_host_s"], p11["packed_host_s"]]}))
+        "host_s": [p11["decoded_host_s"], p11["packed_host_s"]],
+        "nrt": p12, "nrt_launches": nrt_launches}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

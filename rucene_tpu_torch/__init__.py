@@ -1,6 +1,10 @@
 """rucene_tpu_torch — the PyTorch/CUDA port of rucene_tpu, for an NVIDIA H100.
 
-It serves batches of BM25 queries built from the query classes below:
+It writes, commits, deletes, updates and merges segments (IndexWriter over
+a RAMDirectory or an FSDirectory), opens a committed index written by
+either package (index/reader.open_directory_reader) and serves NRT readers
+(SearcherManager). It serves batches of BM25 queries built from the query
+classes below:
 term, boolean, phrase, range / exists / prefix filter, dismax,
 constant-score, boosting and match-all rows, with postings resident on the
 device, decoded or packed. Rows the reference answers on its device path
@@ -53,8 +57,28 @@ from rucene_tpu_torch.search.query import (
 )
 from rucene_tpu_torch.search.searcher import IndexSearcher, ScoreDoc, TopDocs
 from rucene_tpu_torch.search.similarity import BM25Similarity
+from rucene_tpu_torch.search.sort_field import Sort, SortField
+from rucene_tpu_torch.index.merge import TieredMergePolicy
+from rucene_tpu_torch.index.merge_scheduler import ConcurrentMergeScheduler, SerialMergeScheduler
+from rucene_tpu_torch.index.reader import IndexReader, open_directory_reader
+from rucene_tpu_torch.index.writer import IndexWriter, IndexWriterConfig
+from rucene_tpu_torch.search.search_manager import SearcherManager
+from rucene_tpu_torch.store.directory import CorruptIndexError, FSDirectory, RAMDirectory
 
 __all__ = [
+    "ConcurrentMergeScheduler",
+    "CorruptIndexError",
+    "FSDirectory",
+    "IndexReader",
+    "IndexWriter",
+    "IndexWriterConfig",
+    "RAMDirectory",
+    "SearcherManager",
+    "SerialMergeScheduler",
+    "Sort",
+    "SortField",
+    "TieredMergePolicy",
+    "open_directory_reader",
     "BM25Similarity",
     "BinaryDocValuesField",
     "BooleanQuery",

@@ -105,7 +105,10 @@ def build_device_segment(
             norms[pf.field_id, : packed.max_doc] = packed.norms[name]
 
     def put(a, dtype=torch.int32):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # a lazily opened segment's mapped file
+            a = a.copy()
+        return torch.from_numpy(a).to(device=device, dtype=dtype)
 
     return DeviceSegment(
         data=put(data.view(np.int32)),
@@ -120,6 +123,16 @@ def build_device_segment(
         positions=put(positions.view(np.int32)),
         blk_pos_base=put(packed.blk_pos_base),
     )
+
+
+def with_live(dev: DeviceSegment, live: np.ndarray) -> DeviceSegment:
+    """The same form under another live mask (the .liv generation's
+    analog): one upload of the mask; the words, the decoded planes, the tf
+    planes, the norms and the block tables are shared, not rebuilt."""
+    mdp = dev.max_doc_padded
+    arr = np.zeros(mdp, dtype=bool)
+    arr[: len(live)] = live[:mdp]
+    return replace(dev, live=torch.from_numpy(arr).to(dev.device))
 
 
 def blk_fid_host(packed: PackedSegment) -> np.ndarray:
@@ -168,7 +181,19 @@ def decoded_policy(n_blocks: int, max_freq: int) -> tuple[bool, torch.dtype]:
     covers the planes plus the per-stats cval table, RUCENE_DECODED_MAX_MB.
     Its default, 32 GB, is 40% of an 80 GB card: the rest holds the batch
     transients, which at 256 rows over 8.8M docs (dense f32 + i32
-    accumulators, masked scores and int64 top-k keys) come to about 45 GB."""
+    accumulators, masked scores and int64 top-k keys) come to about 45 GB.
+
+    Small segments (NRT flush segments of 2,000-25,000 docs) follow the
+    same rule. The reference serves segments of 32K docs or fewer packed,
+    on floored shapes, to reuse compiled XLA programs and to spare the TPU
+    host link; the port has neither. On an H100 80GB HBM3 at 700 W, two
+    runs of tests/torch_nrt_ab.py (chip_smoke.py's NRT phase, legs
+    decoded, packed, packed, decoded in one process) served 453.4, 346.0
+    and 490.4, 454.2 QPS decoded against 342.0, 318.3 and 520.6, 514.5
+    packed, with 509.8, 586.8 and 458.0, 449.6 ms from a refresh to the
+    end of its first batch against 575.9, 630.4 and 423.6, 420.3: the
+    runs disagree on the sign, so neither form wins, and small segments
+    get no rule of their own."""
     env = os.environ.get("RUCENE_DECODED", "auto")
     if env not in ("0", "1", "auto"):
         raise ValueError(f"RUCENE_DECODED={env!r}: expected 0, 1 or auto")
@@ -211,7 +236,14 @@ def phrase_plane_budget(mdp: int, dev_bytes: int) -> int:
 def tf_plane_budget(mdp: int, dev_bytes: int) -> int:
     """The dense tf planes' byte budget under the same rule: half of what
     _card_left leaves once the phrase cache's ceiling is set aside, capped
-    at TF_PLANE_CAP (8 GB); 0 when nothing is left."""
+    at TF_PLANE_CAP (8 GB); 0 when nothing is left.
+
+    Both budgets are a leaf's, against the whole card. The phrase planes
+    share one cache that evicts against the budget of the leaf fetching,
+    so it never holds much more than the largest leaf's budget (16 GB at
+    most). The tf planes are each leaf's own: n leaves of 2^19 docs or more
+    may hold up to n x 8 GB together. Leaves under 2^19 docs (every NRT
+    flush segment) hold none unless RUCENE_PLANES=1."""
     return max(0, min(TF_PLANE_CAP, (_card_left(mdp, dev_bytes) - PHRASE_PLANE_CAP) // 2))
 
 

@@ -1,23 +1,37 @@
 """Read side: SegmentSnapshot and IndexReader (counterpart of
-rucene_tpu/index/reader.py, slimmed to what the query classes read: the
-term dictionary, host postings with positions, and the doc sets of the
-range, exists and prefix filters over points, every doc-values family,
-norms and postings).
+rucene_tpu/index/reader.py).
 
-A snapshot builds its DeviceSegment lazily on first search, on the device
-its reader names, decoded or packed as codec/device.decoded_policy says
-(RUCENE_DECODED, read when the segment is built). A decoded segment also
-gets its dense tf planes then (codec/device.add_tf_planes, RUCENE_PLANES),
-and the snapshot their rows (plane_slots). The small-segment shape
-floors of the reference, and its rule that serves small segments packed,
-are left out: they exist to reuse compiled XLA programs and to spare the
-TPU host link. So are the doc-values update overlays (``dv_updates``,
-``bdv_updates``), which come with the writer and NRT (ROADMAP.md §1 item
-10): the doc-values accessors read the segment's own columns.
+A snapshot is immutable: NRT refreshes, deletes and doc-values updates make
+new snapshots of a segment (with_deletes, with_dv_updates,
+with_binary_dv_updates) that share its packed postings and their device
+forms. A segment's device form is built once per torch device, lazily, on
+the first search that needs it (decoded or packed as
+codec/device.decoded_policy says, RUCENE_DECODED, read then; a decoded
+form also gets its dense tf planes, codec/device.add_tf_planes,
+RUCENE_PLANES, and their rows, plane_slots). Each counts one
+``reader.device_builds``. A snapshot with deletes serves that form under
+its own live mask (codec/device.with_live): one upload of the mask, no
+decode.
+
+An IndexReader serves views of its snapshots (SegmentSnapshot.view): each
+view carries this reader's doc base and torch device and shares the rest
+with its snapshot. So a reader's global doc ids never move when another
+reader is built over some of the same snapshots (the writer's pool hands
+one snapshot to every NRT reader), and moving one reader to a device
+(IndexReader.to) never drops another reader's device tensors. The
+reference writes both onto the shared snapshot; ROADMAP.md §3 lists that
+fault.
+
+The small-segment shape floors of the reference, and its rule that serves
+small segments packed, are left out: they exist to reuse compiled XLA
+programs and to spare the TPU host link (codec/device.decoded_policy
+states the port's rule).
 """
 
 from __future__ import annotations
 
+import bisect
+import copy
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,9 +43,11 @@ from rucene_tpu_torch.codec.device import (
     add_tf_planes,
     build_device_segment,
     decoded_policy,
+    with_live,
 )
 from rucene_tpu_torch.codec.postings import PackedSegment
 from rucene_tpu_torch.search.similarity import CollectionStats
+from rucene_tpu_torch.util.metrics import METRICS
 from rucene_tpu_torch.util.packing import (
     EF_TAG,
     EF_UNARY_WORDS,
@@ -69,39 +85,121 @@ class TermRecord:
 
 
 class SegmentSnapshot:
-    """One immutable segment view: host metadata + device tensors."""
+    """One immutable segment view: host metadata + device tensors.
+
+    Shared by every snapshot of the segment: ``packed`` and ``_forms``
+    ({torch device: (DeviceSegment with every real doc live, plane
+    rows)}). Shared by a snapshot and its reader views: ``live``, the
+    doc-values overlays and ``_live_forms`` ({torch device: the form under
+    this live mask}). Per view: ``doc_base``, ``torch_device`` and the
+    memo of the form it serves (``_device``, ``plane_slots``)."""
 
     def __init__(self, name: str, packed: PackedSegment, live: np.ndarray | None = None):
         self.name = name
         self.packed = packed
         self.live = live  # None => all live
-        self.doc_base = 0  # assigned by IndexReader
-        self.torch_device = torch.device("cpu")  # set by IndexReader.to
+        self.source = self  # the snapshot a reader's view was made from
+        self.doc_base = 0  # assigned by IndexReader, on its view
+        self.torch_device = torch.device("cpu")  # set by IndexReader.to, on its view
         self._device: DeviceSegment | None = None
-        # hot-term tf-plane rows {term block_start -> plane row}; filled
-        # when the device segment is built (codec/device.add_tf_planes)
+        # hot-term tf-plane rows {term block_start -> plane row} of the
+        # served form; set with it (codec/device.add_tf_planes)
         self.plane_slots: dict[int, int] = {}
+        self._forms: dict = {}
+        self._live_forms: dict = {}
+        # numeric / binary doc-values updates overlaying the segment's
+        # columns (reference doc_values_update.rs: update by term, no reindex)
+        self.dv_updates: dict[str, dict[int, int]] = {}
+        self.bdv_updates: dict[str, dict[int, bytes]] = {}
         self._bkd_cache: dict = {}  # field -> BKD tree of its multi-dim points
 
     @property
     def device(self) -> DeviceSegment:
-        """Device tensors, decoded or packed, built on first access."""
+        """This view's device form on ``torch_device``: built on first
+        access for the segment, then shared by every snapshot and view of
+        it; a live mask of its own costs one upload."""
         if self._device is None:
-            packed = self.packed
-            dev = build_device_segment(packed, self.torch_device, self.live)
-            mf = int(packed.blk_max_freq.max()) if packed.num_blocks else 0
-            decoded, fdt = decoded_policy(packed.num_blocks, mf)
-            self.plane_slots = {}
-            if decoded:
-                dev = add_decoded_planes(dev, freq_dtype=fdt)
-                dev, self.plane_slots = add_tf_planes(dev, packed)
+            d = self.torch_device
+            # setdefault: two threads that build at once keep one form
+            form = self._forms.get(d)
+            if form is None:
+                form = self._forms.setdefault(d, self._build_form(d))
+            dev = self._live_forms.get(d)
+            if dev is None:
+                dev = form[0] if self.live is None else with_live(form[0], self.live)
+                dev = self._live_forms.setdefault(d, dev)
             self._device = dev
+            self.plane_slots = form[1]
         return self._device
+
+    def _build_form(self, d: torch.device):
+        packed = self.packed
+        dev = build_device_segment(packed, d)
+        mf = int(packed.blk_max_freq.max()) if packed.num_blocks else 0
+        decoded, fdt = decoded_policy(packed.num_blocks, mf)
+        slots: dict[int, int] = {}
+        if decoded:
+            dev = add_decoded_planes(dev, freq_dtype=fdt)
+            dev, slots = add_tf_planes(dev, packed)
+        METRICS.incr("reader.device_builds")
+        return dev, slots
+
+    def view(self, doc_base: int) -> "SegmentSnapshot":
+        """A reader's view: this snapshot under ``doc_base``, on this
+        snapshot's torch device until the reader moves it."""
+        v = copy.copy(self)
+        v.doc_base = doc_base
+        return v
 
     @property
     def max_doc(self) -> int:
         return self.packed.max_doc
 
+    @property
+    def del_count(self) -> int:
+        return 0 if self.live is None else int(self.max_doc - self.live.sum())
+
+    @property
+    def num_docs(self) -> int:
+        return self.max_doc - self.del_count
+
+    def with_deletes(self, live: np.ndarray) -> "SegmentSnapshot":
+        """New snapshot under an updated live mask. Its device form is the
+        segment's, under the new mask, made when it is first served."""
+        snap = self._clone_for_updates()
+        snap.live = live.copy()
+        snap._live_forms = {}
+        snap._device = None
+        snap.plane_slots = {}
+        return snap
+
+    def with_dv_updates(self, field: str, by_doc: dict[int, int]) -> "SegmentSnapshot":
+        """New snapshot with numeric doc-values overridden for some docs."""
+        snap = self._clone_for_updates()
+        snap.dv_updates.setdefault(field, {}).update(by_doc)
+        return snap
+
+    def with_binary_dv_updates(
+        self, field: str, by_doc: dict[int, bytes]
+    ) -> "SegmentSnapshot":
+        """New snapshot with binary doc-values overridden for some docs
+        (reference doc_values_update.rs BinaryDocValuesUpdate)."""
+        snap = self._clone_for_updates()
+        snap.bdv_updates.setdefault(field, {}).update(by_doc)
+        return snap
+
+    def _clone_for_updates(self) -> "SegmentSnapshot":
+        """A new snapshot of this segment, on this snapshot's torch device:
+        the packed postings, their device forms and (same live mask) the
+        form it serves shared, the doc-values overlays copied."""
+        snap = copy.copy(self)
+        snap.source = snap
+        snap.doc_base = 0
+        snap.dv_updates = {f: dict(m) for f, m in self.dv_updates.items()}
+        snap.bdv_updates = {f: dict(m) for f, m in self.bdv_updates.items()}
+        return snap
+
+    # --- term dictionary ---
     def term_record(self, field: str, text: str) -> TermRecord | None:
         pf = self.packed.fields.get(field)
         if pf is None:
@@ -120,11 +218,17 @@ class SegmentSnapshot:
             pos_word_start=int(pf.pos_word_start[ord_]) if pf.pos_word_start is not None else 0,
         )
 
+    def terms_iterator(self, field: str) -> "TermsIterator | None":
+        """Ordered term enumeration with seek (reference TermIterator:
+        blocktree SegmentTermIterator, blocktree_reader.rs:907)."""
+        pf = self.packed.fields.get(field)
+        if pf is None:
+            return None
+        return TermsIterator(self, field, pf)
+
     def prefix_terms(self, field: str, prefix: str) -> list[str]:
         """All terms starting with ``prefix``, in order (a bisect range of
         the sorted term list)."""
-        import bisect
-
         pf = self.packed.fields.get(field)
         if pf is None:
             return []
@@ -146,10 +250,31 @@ class SegmentSnapshot:
             return np.zeros(0, np.int64)
         return np.unique(np.concatenate(parts)).astype(np.int64)
 
-    def read_postings(self, field: str, text: str, with_positions: bool = False):
+    def field_stats(self, field: str) -> CollectionStats | None:
+        st = self.packed.stats.get(field)
+        if st is None:
+            return None
+        return CollectionStats(
+            field=field,
+            max_doc=self.max_doc,
+            doc_count=st.doc_count,
+            sum_total_term_freq=st.sum_total_term_freq,
+        )
+
+    # --- host-side postings decode ---
+    def read_postings(
+        self,
+        field: str,
+        text: str,
+        with_positions: bool = False,
+        with_offsets: bool = False,
+        with_payloads: bool = False,
+    ):
         """Host decode of one term's postings: (docs i64[df], freqs
-        i64[df], positions i64[sum(freqs)] or None), or None for an absent
-        term. Occurrence j of doc i sits at positions[cumfreq[i] + j]."""
+        i64[df], positions i64[sum(freqs)] or None), plus the
+        occurrence-aligned (starts, ends) offsets and the payload list when
+        either is asked for; None for an absent term. Occurrence j of doc i
+        sits at positions[cumfreq[i] + j]."""
         rec = self.term_record(field, text)
         if rec is None:
             return None
@@ -175,27 +300,38 @@ class SegmentSnapshot:
             freqs[out : out + cnt] = unpack_block(fwords, fbits)[:cnt]
             out += cnt
         positions = None
-        if with_positions:
+        total = int(freqs.sum())
+        if with_positions or with_offsets or with_payloads:
             positions = _decode_positions(
-                p.positions, rec.pos_word_start, rec.pos_width, int(freqs.sum()), freqs
+                p.positions, rec.pos_word_start, rec.pos_width, total, freqs
             )
-        return docs, freqs, positions
+        if not (with_offsets or with_payloads):
+            return docs, freqs, positions
+        a = int(rec.pos_start)  # the term's first global occurrence
+        offsets = None
+        if with_offsets and p.off_starts is not None:
+            offsets = (p.off_starts[a : a + total], p.off_ends[a : a + total])
+        payloads = None
+        if with_payloads and p.pay is not None:
+            payloads = list(p.pay[a : a + total])
+        return docs, freqs, positions, offsets, payloads
 
-    def field_stats(self, field: str) -> CollectionStats | None:
-        st = self.packed.stats.get(field)
-        if st is None:
+    def document(self, local_doc: int) -> dict[str, object]:
+        """Stored fields of one doc."""
+        return self.packed.stored[local_doc]
+
+    def term_vector(self, local_doc: int, field: str) -> dict[str, list] | None:
+        """Per-doc mini inverted index: {term: [(pos, start, end), ...]}
+        (reference term_vectors_reader.rs)."""
+        tvs = self.packed.term_vectors
+        if tvs is None or local_doc >= len(tvs):
             return None
-        return CollectionStats(
-            field=field,
-            max_doc=self.max_doc,
-            doc_count=st.doc_count,
-            sum_total_term_freq=st.sum_total_term_freq,
-        )
-
+        return tvs[local_doc].get(field)
 
     def exists_mask(self, field: str) -> np.ndarray:
         """bool[max_doc]: docs that have the field, through norms, any
-        doc-values family, points or postings (exists_query.rs:30)."""
+        doc-values family (updates applied), points or postings
+        (exists_query.rs:30)."""
         md = self.max_doc
         m = np.zeros(md, dtype=bool)
         norms = self.packed.norms.get(field)
@@ -247,12 +383,34 @@ class SegmentSnapshot:
         return np.unique(docs[lo:hi]).astype(np.int64)
 
     def numeric_doc_values(self, field: str) -> tuple[np.ndarray, np.ndarray] | None:
-        """(values i64[max_doc], present bool[max_doc]) or None."""
-        return self.packed.numeric_dv.get(field)
+        """(values i64[max_doc], present bool[max_doc]) or None, with this
+        snapshot's numeric updates applied."""
+        base = self.packed.numeric_dv.get(field)
+        over = self.dv_updates.get(field)
+        if not over:
+            return base
+        if base is None:
+            vals = np.zeros(self.max_doc, np.int64)
+            present = np.zeros(self.max_doc, bool)
+        else:
+            vals, present = base[0].copy(), base[1].copy()
+        docs = np.fromiter(over.keys(), dtype=np.int64, count=len(over))
+        vv = np.fromiter(over.values(), dtype=np.int64, count=len(over))
+        vals[docs] = vv
+        present[docs] = True
+        return vals, present
 
     def binary_doc_values(self, field: str) -> list | None:
-        """Per-doc bytes or None."""
-        return (self.packed.binary_dv or {}).get(field)
+        """Per-doc bytes or None, with this snapshot's binary updates
+        applied."""
+        base = (self.packed.binary_dv or {}).get(field)
+        over = self.bdv_updates.get(field)
+        if not over:
+            return base
+        out = list(base) if base is not None else [None] * self.max_doc
+        for d, v in over.items():
+            out[d] = v
+        return out
 
     def sorted_doc_values(self, field: str):
         """(values sorted list[str], ords i32[max_doc] with -1 missing)."""
@@ -266,22 +424,91 @@ class SegmentSnapshot:
         """(values list[str], flat ords i32, offsets i64[max_doc+1])."""
         return (self.packed.sorted_set_dv or {}).get(field)
 
+
+class TermsIterator:
+    """Ordered enumeration over one field's term dictionary (reference
+    TermIterator protocol: next / seek_exact / seek_ceil / term / ord /
+    doc_freq / total_term_freq / postings, blocktree_reader.rs:907)."""
+
+    END = "END"
+    FOUND = "FOUND"
+    NOT_FOUND = "NOT_FOUND"
+
+    def __init__(self, snap: SegmentSnapshot, field: str, pf):
+        self._snap = snap
+        self._field = field
+        self._pf = pf
+        self._ord = -1  # positioned before the first term
+
+    def next(self) -> str | None:
+        if self._ord + 1 >= len(self._pf.terms):
+            self._ord = len(self._pf.terms)
+            return None
+        self._ord += 1
+        return self._pf.terms[self._ord]
+
+    def seek_exact(self, text: str) -> bool:
+        o = self._pf.term_ord.get(text)
+        if o is None:
+            return False
+        self._ord = o
+        return True
+
+    def seek_ceil(self, text: str) -> str:
+        """Position at the smallest term >= text: FOUND / NOT_FOUND (at the
+        successor) / END."""
+        o = bisect.bisect_left(self._pf.terms, text)
+        self._ord = o
+        if o >= len(self._pf.terms):
+            return self.END
+        return self.FOUND if self._pf.terms[o] == text else self.NOT_FOUND
+
+    def seek_ord(self, ord_: int) -> None:
+        if not 0 <= ord_ < len(self._pf.terms):
+            raise IndexError(f"term ord {ord_} out of range")
+        self._ord = ord_
+
+    def term(self) -> str | None:
+        if 0 <= self._ord < len(self._pf.terms):
+            return self._pf.terms[self._ord]
+        return None
+
+    def ord(self) -> int:
+        return self._ord
+
+    def doc_freq(self) -> int:
+        return int(self._pf.doc_freq[self._ord])
+
+    def total_term_freq(self) -> int:
+        return int(self._pf.total_tf[self._ord])
+
+    def postings(self, with_positions: bool = False):
+        t = self.term()
+        if t is None:
+            raise ValueError("iterator is unpositioned")
+        return self._snap.read_postings(self._field, t, with_positions=with_positions)
+
+
 class IndexReader:
     """Point-in-time composite over segment snapshots, served from one
-    torch device at a time (IndexReader.to)."""
+    torch device at a time (IndexReader.to). ``leaves`` are this reader's
+    views of the snapshots it was given (SegmentSnapshot.view)."""
 
     def __init__(self, leaves: list[SegmentSnapshot]):
-        self.leaves = leaves
+        self.leaves = []
         base = 0
         for leaf in leaves:
-            leaf.doc_base = base
+            self.leaves.append(leaf.view(base))
             base += leaf.max_doc
         self.max_doc = base
+        # point-in-time reader: doc freqs are immutable (deletes do not
+        # change df, as in Lucene), so they are memoized across batches
         self._df_cache: dict[tuple[str, str], int] = {}
 
     def to(self, device) -> "IndexReader":
-        """Serve every leaf from ``device``; device tensors already built on
-        another device are dropped and rebuilt lazily."""
+        """Serve every leaf from ``device``. Only this reader's views move:
+        a form built on another device stays with the segment for the
+        readers that serve it there."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -291,6 +518,10 @@ class IndexReader:
                 leaf._device = None
                 leaf.plane_slots = {}
         return self
+
+    @property
+    def num_docs(self) -> int:
+        return sum(leaf.num_docs for leaf in self.leaves)
 
     def collection_stats(self, field: str) -> CollectionStats:
         doc_count = 0
@@ -319,3 +550,40 @@ class IndexReader:
                 self._df_cache.clear()
             self._df_cache[(field, text)] = got
         return got
+
+    def document(self, doc: int) -> dict[str, object]:
+        """Stored fields of a global doc id of this reader."""
+        for leaf in reversed(self.leaves):
+            if doc >= leaf.doc_base:
+                return leaf.document(doc - leaf.doc_base)
+        raise IndexError(f"doc {doc} out of range")
+
+
+def load_segment_snapshot(directory, info) -> SegmentSnapshot:
+    """Load one committed segment (with its live and doc-values update
+    generations) as a snapshot."""
+    from rucene_tpu_torch.codec import files as segfiles
+
+    packed = segfiles.read_segment(directory, info.name)
+    live = (
+        segfiles.read_live(directory, info.name, info.del_gen)
+        if info.del_gen >= 0
+        else None
+    )
+    snap = SegmentSnapshot(info.name, packed, live=live)
+    if info.dv_gen >= 0:
+        num_u, bin_u = segfiles.read_dv_updates(directory, info.name, info.dv_gen)
+        for f, m in num_u.items():
+            snap = snap.with_dv_updates(f, m)
+        for f, m in bin_u.items():
+            snap = snap.with_binary_dv_updates(f, m)
+    return snap
+
+
+def open_directory_reader(directory) -> IndexReader:
+    """Open the latest commit (reference directory_reader.rs:62). Nothing
+    touches a device until the reader is searched."""
+    from rucene_tpu_torch.codec import files as segfiles
+
+    infos = segfiles.read_segments_file(directory)
+    return IndexReader([load_segment_snapshot(directory, info) for info in infos.segments])

@@ -5,6 +5,15 @@ UsageTrackingQueryCachingPolicy cache_policy.rs:60 with its frequency ring
 buffer, lru_cache.rs:50). Note the reference wires the cache but
 force-disables it at searcher.rs:696-702; here it is live for host-path
 filter work (range/exists doc sets), keyed by (leaf id, filter key).
+
+Port changes (held against rucene_tpu/search/cache.py by
+tests/test_torch_host.py):
+- LRUQueryCache.get_or_compute: the key also counts the doc-values updates
+  the snapshot overlays. An exists set reads the overlays, and a
+  snapshot made by an update shares its segment (and so its key) with
+  the one before it; the reference serves the set cached before the
+  update. Overlays only grow along a segment's snapshots, so their count
+  names them, and a delete (which keeps them) still hits.
 """
 
 from __future__ import annotations
@@ -36,8 +45,11 @@ class LRUQueryCache:
         self.misses = 0
 
     def get_or_compute(self, leaf, key, compute) -> np.ndarray:
+        overlays = sum(len(m) for m in leaf.dv_updates.values()) + sum(
+            len(m) for m in leaf.bdv_updates.values()
+        )
         return self.get_or_compute_keyed(
-            (id(leaf.packed), leaf.name, key), compute, anchor=leaf.packed
+            (id(leaf.packed), leaf.name, key, overlays), compute, anchor=leaf.packed
         )
 
     def get_or_compute_keyed(self, full_key, compute, anchor=None):

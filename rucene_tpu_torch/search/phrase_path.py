@@ -33,7 +33,12 @@ admission denied, or their term matches meet a plane's overflow column;
 each such row reruns whole on the host route).
 
 Caches are module-wide as in the reference, so searchers over one segment
-share them; each entry pins the packed segment its key's id() names.
+share them. The plane caches and the memos hold a weak reference to the
+packed segment their key's id() names, and a hit requires it to be that
+segment: a segment merged away in NRT serving goes once no reader holds
+it, and its device planes at the next plane fetch (drop_dead_planes; the
+reference's entries pin their segment until the LRU evicts them, under a
+budget of up to 16 GB). The scalar engine cache holds its segment.
 Position planes and denominator planes are keyed by (segment, torch
 device) as well. Left out: span groups and synonyms (ROADMAP.md §1 item
 9), the pow2 row pads, the static slop / has_ef programs,
@@ -47,6 +52,8 @@ term; conjunction_scorer.rs orders by cost.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -54,26 +61,52 @@ from rucene_tpu_torch.codec.device import device_bytes, phrase_plane_budget
 from rucene_tpu_torch.util.metrics import METRICS
 
 # position-plane cache: (id(packed), device, field, term) -> (plane,
-# overflow, packed-ref); denominator planes under (id(packed), device,
+# overflow, weak packed-ref); denominator planes under (id(packed), device,
 # "denom", fid, cache row bytes) with overflow None. Byte-budgeted LRU.
+# The weak reference lets a segment that no reader or writer holds any
+# more (merged away in NRT serving) go, and drop_dead_planes frees its
+# planes at the next plane fetch.
 _PLANE_CACHE: dict = {}
 
 # candidate block-selection memo: (id(packed), field, terms, budget) ->
-# ((blocks, slots) | None, packed-ref). Popular phrases repeat across
+# ((blocks, slots) | None, weak packed-ref). Popular phrases repeat across
 # batches; the selection host-decodes the rarest term's postings.
 _BLOCKSEL_CACHE: dict = {}
 _BLOCKSEL_CAP = 8192
 
 # resident-set memo: (id(packed), field) -> (ordered terms tuple, term set,
-# packed-ref). Keyed without the budget, so admission is stable for a
+# weak packed-ref). Keyed without the budget, so admission is stable for a
 # segment's lifetime. See _plane_resident_terms.
 _RESIDENT_CACHE: dict = {}
 
-# plane-width memo: (id(packed), field) -> (words, packed-ref).
+# plane-width memo: (id(packed), field) -> (words, weak packed-ref).
 _PLANE_WORDS_CACHE: dict = {}
 
 # scalar C++ engine cache: id(packed) -> (engine, live-ref, packed-ref)
 _SCALAR_ENGINE_CACHE: dict = {}
+
+
+def drop_dead_planes() -> int:
+    """Drop the plane-cache entries of segments that have been freed;
+    returns the bytes released."""
+    freed = 0
+    for key, (plane, overflow, ref) in list(_PLANE_CACHE.items()):
+        if ref() is None and _PLANE_CACHE.pop(key, None) is not None:
+            freed += plane.numel() * plane.element_size()
+            freed += 0 if overflow is None else overflow.numel()
+    return freed
+
+
+def _plane_hit(key, packed):
+    """The entry under ``key`` if it was built for ``packed``, moved to the
+    LRU's end; None otherwise (an entry of a freed segment whose id() came
+    back with another segment goes)."""
+    got = _PLANE_CACHE.pop(key, None)
+    if got is None or got[2]() is not packed:
+        return None
+    _PLANE_CACHE[key] = got
+    return got
+
 
 def _plane_cache_bytes() -> int:
     total = 0
@@ -178,11 +211,11 @@ class PhrasePathMixin:
         (segment, field, terms, budget): see _phrase_blocks_uncached."""
         ck = (id(leaf.packed), field, tuple(terms), budget_df)
         hit = _BLOCKSEL_CACHE.pop(ck, None)
-        if hit is not None and hit[1] is leaf.packed:
+        if hit is not None and hit[1]() is leaf.packed:
             _BLOCKSEL_CACHE[ck] = hit  # refresh LRU position
             return hit[0]
         picked = PhrasePathMixin._phrase_blocks_uncached(leaf, field, terms, recs, budget_df)
-        _BLOCKSEL_CACHE[ck] = (picked, leaf.packed)
+        _BLOCKSEL_CACHE[ck] = (picked, weakref.ref(leaf.packed))
         while len(_BLOCKSEL_CACHE) > _BLOCKSEL_CAP:
             _BLOCKSEL_CACHE.pop(next(iter(_BLOCKSEL_CACHE)))
         return picked
@@ -460,7 +493,7 @@ class PhrasePathMixin:
         overflow column."""
         key = (id(leaf.packed), field)
         got = _PLANE_WORDS_CACHE.get(key)
-        if got is not None and got[1] is leaf.packed:
+        if got is not None and got[1]() is leaf.packed:
             return got[0]
         from rucene_tpu_torch.util.small_float import norm_table
 
@@ -469,7 +502,7 @@ class PhrasePathMixin:
         if nb is not None and len(nb):
             if float(norm_table()[np.asarray(nb)].max()) <= 64.0:
                 words = 2
-        _PLANE_WORDS_CACHE[key] = (words, leaf.packed)
+        _PLANE_WORDS_CACHE[key] = (words, weakref.ref(leaf.packed))
         if len(_PLANE_WORDS_CACHE) > 256:
             _PLANE_WORDS_CACHE.pop(next(iter(_PLANE_WORDS_CACHE)))
         return words
@@ -481,7 +514,7 @@ class PhrasePathMixin:
         the query path only for terms that will stay cached)."""
         key = (id(leaf.packed), field)
         got = _RESIDENT_CACHE.get(key)
-        if got is not None and got[2] is leaf.packed:
+        if got is not None and got[2]() is leaf.packed:
             return got[0], got[1]
         pf = leaf.packed.fields.get(field)
         if pf is None:
@@ -496,7 +529,7 @@ class PhrasePathMixin:
             keep = order[bc[order] >= 1]
             terms = tuple(pf.terms[int(o)] for o in keep)
             out = (terms, frozenset(terms))
-        _RESIDENT_CACHE[key] = (out[0], out[1], leaf.packed)
+        _RESIDENT_CACHE[key] = (out[0], out[1], weakref.ref(leaf.packed))
         if len(_RESIDENT_CACHE) > 64:
             _RESIDENT_CACHE.pop(next(iter(_RESIDENT_CACHE)))
         return out
@@ -508,7 +541,8 @@ class PhrasePathMixin:
             return True  # small leaf: on-demand builds are cheap
         res = None
         for t in terms:
-            if _seg_key(leaf) + (field, t) in _PLANE_CACHE:
+            got = _PLANE_CACHE.get(_seg_key(leaf) + (field, t))
+            if got is not None and got[2]() is leaf.packed:
                 continue
             if res is None:
                 res = self._plane_resident_terms(leaf, field)[1]
@@ -523,14 +557,14 @@ class PhrasePathMixin:
         from rucene_tpu_torch.ops.phrase_plane import FMAX, build_position_plane
 
         key = _seg_key(leaf) + (field, term)
-        got = _PLANE_CACHE.pop(key, None)
+        got = _plane_hit(key, leaf.packed)
         if got is not None:
-            _PLANE_CACHE[key] = got  # most-recent LRU position
             return got[0], got[1]
         rec = leaf.term_record(field, term)
         if rec is None:
             return None
         blocks = np.arange(rec.block_start, rec.block_start + rec.block_count, dtype=np.int32)
+        drop_dead_planes()
         budget = self._plane_budget_bytes(leaf)
         p_words = self._plane_words(leaf, field)
         new_bytes = leaf.device.max_doc_padded * (p_words * 4 + 1)  # plane + overflow
@@ -542,7 +576,7 @@ class PhrasePathMixin:
             rec.pos_word_start, words=p_words, fwin=fwin,
         )
         METRICS.incr("search.phrase_plane_build")
-        _PLANE_CACHE[key] = (plane, overflow, leaf.packed)
+        _PLANE_CACHE[key] = (plane, overflow, weakref.ref(leaf.packed))
         while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget:
             _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
         return plane, overflow
@@ -559,9 +593,8 @@ class PhrasePathMixin:
             if fkey in out:
                 continue
             key = _seg_key(leaf) + (field, term)
-            got = _PLANE_CACHE.pop(key, None)
+            got = _plane_hit(key, leaf.packed)
             if got is not None:
-                _PLANE_CACHE[key] = got  # LRU reinsert
                 out[fkey] = (got[0], got[1])
                 continue
             if leaf.term_record(field, term) is None:
@@ -607,13 +640,12 @@ class PhrasePathMixin:
         """Device-cached f32[mdp] BM25 denominator plane for one field,
         cache_row[norm_byte[doc]], built once per (leaf, field, stats)."""
         key = _seg_key(leaf) + ("denom", fid, cache_row.tobytes())
-        got = _PLANE_CACHE.pop(key, None)
+        got = _plane_hit(key, leaf.packed)
         if got is not None:
-            _PLANE_CACHE[key] = got
             return got[0]
         row = torch.from_numpy(np.ascontiguousarray(cache_row, np.float32)).to(leaf.torch_device)
         denom = row[leaf.device.norms[fid].long()]
-        _PLANE_CACHE[key] = (denom, None, leaf.packed)
+        _PLANE_CACHE[key] = (denom, None, weakref.ref(leaf.packed))
         return denom
 
     def _search_mixed_device(self, queries, rqs, k: int, _defer: bool = False):
@@ -873,9 +905,15 @@ class PhrasePathMixin:
             while len(_SCALAR_ENGINE_CACHE) > 64:
                 _SCALAR_ENGINE_CACHE.pop(next(iter(_SCALAR_ENGINE_CACHE)))
         else:
-            cached[0].sim = sim
-            cached[0].stats = stats
-            cached[0].doc_freqs = doc_freqs
+            eng = cached[0]
+            if eng.sim is not sim or eng.stats != stats:
+                # its BM25 norm tables were made from the old statistics: an
+                # NRT refresh that adds docs changes them (the reference
+                # keeps serving the stale tables)
+                eng._cache_rows, eng._cache_idx = [], {}
+            eng.sim = sim
+            eng.stats = stats
+            eng.doc_freqs = doc_freqs
         return cached[0]
 
     def _scalar_fallback(self, leaf, rq, query, sim, stats, doc_freqs, k):

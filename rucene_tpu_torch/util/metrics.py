@@ -15,7 +15,11 @@ Counters in use:
 - ``search.strategy.dense`` / ``search.strategy.candidate``: executor calls
   per branch;
 - ``kernel.<name>``: launches of a CUDA kernel, counted by its wrapper
-  right where it launches (never for the CPU twin).
+  right where it launches (never for the CPU twin);
+- ``reader.device_builds``: device forms built for a segment on a device
+  (index/reader.py; a delete or doc-values update builds none);
+- ``writer.flushes``, ``writer.merges``, ``writer.merge_errors`` and the
+  ``writer.flush`` timer (index/writer.py).
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@ the reference's modules.
 
 (a) In a subprocess whose import system refuses ``jax``, import
     rucene_tpu_torch, build a 200-doc index and search it on the CPU, a
-    filter row and a host row among the rows: the card's host has no jax.
+    filter row and a host row among the rows, then write the same docs
+    with IndexWriter into a temporary FSDirectory, reopen them with
+    open_directory_reader and serve two rows: the card's host has no jax.
 (b) Drift guard: every host module the port copies from rucene_tpu equals
     its original (syntax tree, module docstring aside) once the import
     prefix is mapped, apart from the definitions its docstring lists under
@@ -28,13 +30,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = [
     "analysis/__init__.py",
     "analysis/tokenizer.py",
+    "codec/bulk_read.py",
+    "codec/dv_codec.py",
+    "codec/files.py",
     "codec/postings.py",
     "doc/__init__.py",
     "doc/document.py",
     "doc/field.py",
     "doc/term.py",
+    "index/doc_writer.py",
     "index/field_infos.py",
+    "index/index_lookup.py",
+    "index/index_sorting.py",
     "index/memory.py",
+    "index/merge.py",
+    "index/merge_scheduler.py",
+    "index/writer.py",
     "native/__init__.py",
     "ops/combine_tables.py",
     "search/cache.py",
@@ -43,9 +54,17 @@ COPIED = [
     "search/plane_path.py",
     "search/query.py",
     "search/scalar_engine.py",
+    "search/search_manager.py",
     "search/similarity.py",
+    "search/sort_field.py",
+    "store/__init__.py",
+    "store/directory.py",
+    "tools/__init__.py",
+    "tools/check_index.py",
     "util/__init__.py",
     "util/bkd.py",
+    "util/front_coding.py",
+    "util/lz4_py.py",
     "util/packing.py",
     "util/small_float.py",
 ]
@@ -69,9 +88,10 @@ from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
 rng = np.random.default_rng(7)
 words = ["alpha", "beta", "gamma", "delta", "eps", "zeta", "eta", "theta"]
 buf = SegmentBuffer()
-for _ in range(200):
+texts = [" ".join(rng.choice(words, int(rng.integers(3, 15)))) for _ in range(200)]
+for text in texts:
     d = T.Document()
-    d.add(T.TextField("body", " ".join(rng.choice(words, int(rng.integers(3, 15))))))
+    d.add(T.TextField("body", text))
     buf.add_document(d)
 searcher = T.IndexSearcher(
     IndexReader([SegmentSnapshot("s", pack_segment(buf.finish()))]), device="cpu"
@@ -90,10 +110,26 @@ hits = searcher.search_batch(
     [T.TermQuery(T.Term("body", "gamma")), q, T.PhraseQuery("body", ["alpha", "beta"]), nested],
     k=10,
 )
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    w = T.IndexWriter(T.FSDirectory(tmp), T.IndexWriterConfig(max_buffered_docs=64))
+    for text in texts:
+        d = T.Document()
+        d.add(T.TextField("body", text))
+        w.add_document(d)
+    w.commit()
+    w.close()
+    disk = T.IndexSearcher(T.open_directory_reader(T.FSDirectory(tmp)), device="cpu")
+    on_disk = [disk.search(q, 10) for q in (T.TermQuery(T.Term("body", "gamma")), q)]
+    in_memory = [searcher.search(q, 10) for q in (T.TermQuery(T.Term("body", "gamma")), q)]
+    leaves = len(disk.reader.leaves)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rucene_tpu"))
 print(json.dumps({
     "loaded": loaded,
     "hits": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in hits],
+    "disk": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in on_disk],
+    "memory": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in in_memory],
+    "leaves": leaves,
 }))
 """
 
@@ -113,6 +149,10 @@ def test_port_runs_without_jax():
     assert len(top3) == min(10, n3)
     assert len(top1) == 10 and len(top2) == min(10, n2)
     assert all(a[1] >= b[1] for a, b in zip(top2, top2[1:]))
+    # the write path: an index written to disk by the port's IndexWriter
+    # (four segments) and opened with open_directory_reader
+    assert out["leaves"] == 4
+    assert out["disk"] == out["memory"] and out["disk"][0][0] == n1
 
 
 # --- (b) drift guard ----------------------------------------------------------
@@ -196,3 +236,77 @@ def test_smoke_workload_matches_bench():
         assert [rows(q) for q in mine] == [rows(q) for q in ref]
     phrase_at = [i for i, q in enumerate(ref) if type(q).__name__ == "PhraseQuery"]
     assert phrase_at == list(range(7, 64, 8))
+
+
+# --- (d) phase 12's core on the card ------------------------------------------
+
+
+@pytest.mark.gpu
+def test_nrt_core_on_card():
+    """Refresh, delete and read back on the card: a SearcherManager on
+    CUDA over the port's writer. Markers added in chunks are found once
+    after a refresh; deleted markers and a word deleted by query find
+    nothing after the next; the rows equal a CPU reader opened on the
+    committed directory; a searcher acquired before a merging refresh
+    answers bit for bit as before, and the delete refresh builds no
+    device form."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import rucene_tpu_torch as T
+    from rucene_tpu_torch.util.metrics import METRICS
+    from torch_hitcheck import assert_batches_strict
+
+    rng = np.random.default_rng(3)
+    words = [f"w{i}" for i in range(60)]
+    ram = T.RAMDirectory()
+    w = T.IndexWriter(ram, T.IndexWriterConfig(max_buffered_docs=400, merge_on_commit=False))
+    mgr = T.SearcherManager(w, searcher_factory=lambda r: T.IndexSearcher(r, device="cuda"))
+    rows = [T.TermQuery(T.Term("body", words[i])) for i in range(4)] + [
+        T.BooleanQuery().should(T.TermQuery(T.Term("body", "w1"))).should(
+            T.TermQuery(T.Term("body", "w5"))),
+        T.BooleanQuery().must(T.TermQuery(T.Term("body", "w2"))).must(
+            T.TermQuery(T.Term("body", "w3"))),
+        T.PhraseQuery("body", ["w0", "w1"]),
+    ]
+    for chunk in range(12):
+        docs = []
+        for _ in range(150):
+            d = T.Document()
+            d.add(T.TextField("body", " ".join(rng.choice(words, int(rng.integers(4, 20))))))
+            docs.append(d)
+        m = T.Document()
+        m.add(T.StringField("marker", f"m{chunk}"))
+        w.add_documents(docs + [m])
+        if chunk % 3 == 2:
+            w.commit()
+            mgr.maybe_refresh()
+            mgr.acquire().search_batch(rows, k=50)
+    w.commit()
+    mgr.maybe_refresh()
+    s = mgr.acquire()
+    marks = s.search_batch([T.TermQuery(T.Term("marker", f"m{j}")) for j in range(12)], k=5)
+    assert [td.total_hits for td in marks] == [1] * 12
+    METRICS.reset()
+    for j in range(0, 12, 2):
+        w.delete_documents_by_term(T.Term("marker", f"m{j}"))
+    w.delete_documents_by_query(T.TermQuery(T.Term("body", "w40")))
+    w.commit()
+    assert mgr.maybe_refresh()
+    s = mgr.acquire()
+    gone = s.search_batch([T.TermQuery(T.Term("marker", f"m{j}")) for j in range(0, 12, 2)]
+                          + [T.TermQuery(T.Term("body", "w40"))], k=5)
+    assert all(td.total_hits == 0 for td in gone)
+    card = s.search_batch(rows, k=50)
+    assert METRICS.snapshot()["counters"].get("reader.device_builds", 0) == 0
+    cpu = T.IndexSearcher(T.open_directory_reader(ram), device="cpu")
+    assert_batches_strict(card, cpu.search_batch(rows, k=50))
+    w.force_merge(2)
+    w.commit()
+    assert mgr.maybe_refresh()
+    assert s.search_batch(rows, k=50) == card
+    merged = mgr.acquire().search_batch(rows, k=50)
+    assert_batches_strict(merged, T.IndexSearcher(T.open_directory_reader(ram), device="cpu")
+                          .search_batch(rows, k=50))
+    w.close()
