@@ -97,6 +97,21 @@ Builds the CUDA kernels and the native library from this checkout, then:
      in the kernels' JSON rows. It also holds K1 and K3 at a flush
      segment's shapes against their plain twins (nrt_kernel_replay; the
      figures under ``nrt.replay``, K3's error in its row's max_abs_err).
+     It runs after phase 13.
+ 13. the query surface on both readers (serve_query_surface; the rows of
+     surface_queries, seed 29, after luceneutil's TermDTSort,
+     HighTermMonthSort and TermGroup10K tasks, over the corpus's numeric
+     doc values ts, month and grp): S, 76 search_sorted rows (by ts
+     descending, by (month, ts descending), 4 by score on the host path);
+     C, 40 search_collapse rows by grp; N, one batch of 104 span and
+     synonym rows (SpanOr synonyms, unordered span-near, ordered slop-0
+     rows with a SpanOr child, span-term and ordered plain-term rows that
+     plan as term and phrase rows, 8 nested trees on the host route
+     through the native span evaluator); R, 32 first passes rescored over
+     their top 50 by QueryRescorer's probe path; E, explain of 16 (row,
+     hit) pairs and 16 query strings parsed and served. Its gates and
+     figures are in serve_query_surface's docstring; the figures print
+     under ``query_surface`` and its launches count in the kernels' rows.
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
@@ -106,9 +121,9 @@ JSON record (with qps, packed_qps, qps_no_phrase, tf_plane_mib,
 pair_rows, plane_rows, phase 10's mixed_qps, mixed_packed_qps,
 extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc), and
 phase 11's filter_qps, filter_packed_qps, filter_kernel_ms_busy,
-filter_planes and host_rows, and phase 12's figures under ``nrt`` with
-its launches under ``nrt_launches``), the card's name and power limit,
-and the device line.
+filter_planes and host_rows, phase 13's figures under ``query_surface``,
+and phase 12's figures under ``nrt`` with its launches under
+``nrt_launches``), the card's name and power limit, and the device line.
 """
 
 from __future__ import annotations
@@ -132,8 +147,12 @@ K3_SOURCE = "rucene_tpu_torch/csrc/combine.cu"
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"# {msg}", flush=True)
+    """One progress line, with the seconds since the script started."""
+    print(f"# [{time.perf_counter() - T0:6.1f}s] {msg}", flush=True)
 
 
 # --- the bench workload (bench.py:38-172) ------------------------------------
@@ -380,12 +399,19 @@ def filter_queries(phrase_texts, vocab, probs, seed: int = 23):
     return stage_a, stage_b, host
 
 
+MONTH_S = YEAR_S // 12  # the ``month`` doc value is ts // MONTH_S
+N_GROUPS = 10_000  # grp: luceneutil's TermGroup10K
+
+
 def pack_corpus(texts, seed: int = 23):
     """The packed segment of ``texts`` in ``body``, each doc with an
     IntPoint ``ts`` (a second of one year, uniform) and, on one doc in 4, a
     StringField ``tag`` (c000-c999, uniform), drawn from ``seed``: the
-    time and category a content search filters by."""
-    from rucene_tpu_torch import Document, IntPoint, StringField, TextField
+    time and category a content search filters by. Phase 13's numeric doc
+    values ride beside them: ``ts`` (the point's value), ``month`` (ts //
+    MONTH_S) and ``grp`` (uniform 0-9,999, drawn after the others, so the
+    earlier fields keep their values)."""
+    from rucene_tpu_torch import Document, IntPoint, NumericDocValuesField, StringField, TextField
     from rucene_tpu_torch.codec.postings import pack_segment
     from rucene_tpu_torch.index.memory import SegmentBuffer
 
@@ -393,6 +419,7 @@ def pack_corpus(texts, seed: int = 23):
     ts = rng.integers(0, YEAR_S, len(texts)).tolist()
     tag = rng.integers(0, 1000, len(texts)).tolist()
     tagged = (rng.random(len(texts)) < 0.25).tolist()
+    grp = rng.integers(0, N_GROUPS, len(texts)).tolist()
     buf = SegmentBuffer()
     docs = []
     for i, t in enumerate(texts):
@@ -401,6 +428,9 @@ def pack_corpus(texts, seed: int = 23):
         d.add(IntPoint("ts", ts[i]))
         if tagged[i]:
             d.add(StringField("tag", f"c{tag[i]:03d}"))
+        d.add(NumericDocValuesField("ts", ts[i]))
+        d.add(NumericDocValuesField("month", ts[i] // MONTH_S))
+        d.add(NumericDocValuesField("grp", grp[i]))
         docs.append(d)
     buf.add_documents_bulk(docs)
     del docs
@@ -440,19 +470,28 @@ def profile_passes(searcher, queries, passes: int = 3, top: int = 10):
     """(kernel ms per pass, device busy share: the union of kernel
     intervals over the wall time, the ``top`` kernels by device time as
     [name, ms per pass]) over pipelined passes under torch.profiler."""
+
+    def one_pass():
+        pending = []
+        for i in range(0, len(queries), BATCH):
+            pending.append(searcher.search_batch_async(queries[i:i + BATCH], k=K))
+            while len(pending) >= 3:
+                pending.pop(0)()
+        while pending:
+            pending.pop(0)()
+
+    return profile_fn(one_pass, passes, top)
+
+
+def profile_fn(one_pass, passes: int = 3, top: int = 10):
+    """profile_passes' figures over ``passes`` calls of one_pass()."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pending = []
         for _ in range(passes):
-            for i in range(0, len(queries), BATCH):
-                pending.append(searcher.search_batch_async(queries[i:i + BATCH], k=K))
-                while len(pending) >= 3:
-                    pending.pop(0)()
-        while pending:
-            pending.pop(0)()
+            one_pass()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -883,6 +922,359 @@ def serve_filter_rows(searchers, cpu_searcher, stage_a, stage_b, host_q, card, f
     log(f"16 stage-A rows (every kind) and {len(host_q)} host rows match the CPU run hit for hit "
         f"({time.perf_counter() - t:.1f}s)")
     del out["results"]
+    return out
+
+
+# --- phase 13: the query surface (sorted, collapse, spans, rescore, explain) -
+
+SURFACE_SEED = 29
+
+
+def surface_queries(phrase_texts, vocab, probs, seed: int = SURFACE_SEED):
+    """Phase 13's rows, drawn from ``seed``: band terms at ranks 10-5000 as
+    the other phases draw them, head-band terms at ranks 0-63, words and
+    bigrams from the docs of ``phrase_texts``. Returns a dict of stages:
+    - "S", 76 (query, Sort) rows after luceneutil's TermDTSort and
+      HighTermMonthSort tasks: 32 single-term rows by ts descending, 32
+      two-term AND rows by (month, ts descending), 8 head-band two-term OR
+      rows by ts descending, and 4 single-term rows by score, then ts (the
+      host path);
+    - "C", 40 rows collapsed by grp (TermGroup10K): 32 band terms, 8
+      head-band two-term ORs;
+    - "N", 104 span and synonym rows for one batch: 32 SpanOrQuery rows of
+      2-3 band terms; 32 unordered SpanNearQuery rows of 2-3 distinct words
+      from one window of a doc, slop 0-8, so that they match; 16 ordered
+      slop-0 rows over a bigram with a band term ORed to one side; 8
+      SpanTermQuery rows; 8 ordered plain-term span-near rows over a bigram
+      (the device_equivalent rows); 8 nested trees over words of rank 100
+      or more (an ordered near inside an unordered near, or a SpanOr of
+      two nears: the host route, which decodes their postings on the
+      host);
+    - "R", 32 (first-pass term row, rescore query) pairs, the rescore query
+      a two-term SHOULD boolean of band terms, of head-band terms in the
+      last 8;
+    - "E", 16 (query string, the same query built by hand) pairs."""
+    from rucene_tpu_torch import (
+        BooleanQuery,
+        PhraseQuery,
+        PointRangeQuery,
+        Sort,
+        SortField,
+        Term,
+        TermQuery,
+    )
+    from rucene_tpu_torch.search.sort_field import SortFieldType
+    from rucene_tpu_torch.search.spans import SpanNearQuery, SpanOrQuery, SpanTermQuery
+
+    rng = np.random.default_rng(seed)
+    band = band_sampler(vocab, probs, rng)
+
+    def t(w, field="body", boost=1.0):
+        return TermQuery(Term(field, w), boost=boost)
+
+    def st(w):
+        return SpanTermQuery(Term("body", w))
+
+    def bq(*clauses):
+        q = BooleanQuery()
+        for occ, sub in clauses:
+            getattr(q, occ)(sub)
+        return q
+
+    def distinct(n, avoid=()):
+        out: list = []
+        while len(out) < n:
+            w = str(band())
+            if w not in out and w not in avoid:
+                out.append(w)
+        return out
+
+    def head_or():
+        a, b = rng.choice(64, 2, replace=False)
+        return bq(("should", t(vocab[a])), ("should", t(vocab[b])))
+
+    def window_words(n, span, lo=0):
+        """n distinct words of one doc, the first at a window's start and
+        the rest inside its ``span`` positions, in doc order; each of rank
+        ``lo`` or more (the vocabulary is w<rank>)."""
+        while True:
+            words = phrase_texts[int(rng.integers(0, len(phrase_texts)))].split()
+            if len(words) < span:
+                continue
+            j = int(rng.integers(0, len(words) - span + 1))
+            pos = [j] + sorted(rng.choice(np.arange(j + 1, j + span), n - 1, replace=False).tolist())
+            picked = [words[p] for p in pos]
+            if len(set(picked)) == n and min(int(w[1:]) for w in picked) >= lo:
+                return picked
+
+    bigrams = [bg for bg in sample_bigrams(phrase_texts, 64, seed=seed) if bg[0] != bg[1]]
+    lng = SortFieldType.LONG
+    ts_desc = Sort([SortField("ts", lng, reverse=True)])
+    month_ts = Sort([SortField("month", lng), SortField("ts", lng, reverse=True)])
+    by_score = Sort([SortField(None, SortFieldType.SCORE), SortField("ts", lng)])
+    stages = {
+        "S": [(t(band()), ts_desc) for _ in range(32)]
+        + [(bq(*(("must", t(w)) for w in distinct(2))), month_ts) for _ in range(32)]
+        + [(head_or(), ts_desc) for _ in range(8)]
+        + [(t(band()), by_score) for _ in range(4)],
+        "C": [t(band()) for _ in range(32)] + [head_or() for _ in range(8)],
+    }
+    spans = [SpanOrQuery([st(w) for w in distinct(int(rng.integers(2, 4)))]) for _ in range(32)]
+    for _ in range(32):
+        n, slop = int(rng.integers(2, 4)), int(rng.integers(0, 9))
+        words = [str(w) for w in rng.permutation(window_words(n, n + slop))]
+        spans.append(SpanNearQuery([st(w) for w in words], slop=slop, in_order=False))
+    for i in range(16):
+        a, b = bigrams[i]
+        x = distinct(1, avoid=(a, b))[0]
+        kids = [SpanOrQuery([st(a), st(x)]), st(b)] if i % 2 else [st(a), SpanOrQuery([st(b), st(x)])]
+        spans.append(SpanNearQuery(kids, slop=0, in_order=True))
+    spans += [st(band()) for _ in range(8)]
+    spans += [SpanNearQuery([st(a), st(b)], slop=0, in_order=True) for a, b in bigrams[16:24]]
+    for i in range(8):  # words of rank 100 or more: the host reads their postings
+        if i % 2:
+            a, b, c = window_words(3, 5, lo=100)
+            inner = SpanNearQuery([st(a), st(b)], slop=2, in_order=True)
+            spans.append(SpanNearQuery([inner, st(c)], slop=5, in_order=False))
+        else:
+            (a, b), (c, d) = window_words(2, 2, lo=100), window_words(2, 3, lo=100)
+            spans.append(SpanOrQuery([SpanNearQuery([st(a), st(b)], slop=1, in_order=True),
+                                      SpanNearQuery([st(c), st(d)], slop=2, in_order=False)]))
+    stages["N"] = spans
+    pairs = [(t(band()), bq(*(("should", t(w)) for w in distinct(2)))) for _ in range(24)]
+    stages["R"] = pairs + [(t(band()), head_or()) for _ in range(8)]
+    strings = []
+    for i in range(2):
+        a, b, c = distinct(3)
+        p1, p2 = bigrams[24 + i]
+        lo = int(MONTH_STARTS[rng.integers(12)])
+        hi = lo + 30 * 86400 - 1
+        tag = f"c{int(rng.integers(1000)):03d}"
+        strings += [
+            (f"+{a} -{b}", bq(("must", t(a)), ("must_not", t(b)))),
+            (f"{a} AND {b}", bq(("must", t(a)), ("must", t(b)))),
+            (f"{a} OR {b}", bq(("should", t(a)), ("should", t(b)))),
+            (f'"{p1} {p2}"~2', PhraseQuery("body", [p1, p2], slop=2)),
+            (f"body:{a}^2", t(a, boost=2.0)),
+            (f"+{a} +({b} OR {c})", bq(("must", t(a)), ("must", bq(("should", t(b)), ("should", t(c)))))),
+            (f"{a} AND ts:[{lo} TO {hi}]", bq(("must", t(a)), ("must", PointRangeQuery("ts", lo, hi)))),
+            (f"tag:{tag} OR {a}", bq(("should", t(tag, field="tag")), ("should", t(a)))),
+        ]
+    stages["E"] = strings
+    return stages
+
+
+def field_docs_equal(got, want, exact: bool = True) -> bool:
+    """Sorted results: total hits, docs and sort values equal; scores equal
+    (exact) or within the strict RTOL."""
+    from torch_hitcheck import RTOL
+
+    if got.total_hits != want.total_hits or len(got.field_docs) != len(want.field_docs):
+        return False
+    for g, w in zip(got.field_docs, want.field_docs):
+        if g.doc != w.doc or list(g.fields) != list(w.fields):
+            return False
+        if (g.score != w.score) if exact else abs(g.score - w.score) > RTOL * max(1.0, abs(w.score)):
+            return False
+    return True
+
+
+def serve_query_surface(searchers, cpu_searcher, rows, mix_pairs, card):
+    """Phase 13 on each reader of ``searchers`` (the packed one with the
+    plain decode twins refused): the stages of surface_queries, each warmed
+    once, then served with its counts set to 0 just before and read just
+    after. S: search_sorted over its 76 rows; C: search_collapse by grp;
+    N: one search_batch of the 104 span and synonym rows; R: the 32 first
+    passes, each rescored over its top 50 by QueryRescorer (weight 2.0);
+    E: explain of 16 (row, hit) pairs (6 from S, 6 from N and the 4 of
+    ``mix_pairs`` from the bench mix) and the 16 query strings, parsed and
+    served beside the same queries built by hand.
+
+    Gates, each failing the run: the native span evaluator built and every
+    nested row of N evaluated through it; N's routes (32 synonym, 48
+    span_unordered, 8 host, 8 device, 8 phrase, 0 mixed); the combine kernel
+    launched with entries to combine in S, C and R on both readers; the
+    scoring decode launched in S, C and N on the packed reader and never on
+    the decoded one; 4 host rows in S, none in C; each explanation's value
+    its hit's score within RTOL; each parsed row's hits those of the row
+    built by hand; the packed answers equal to the decoded ones bit for
+    bit; 8 rows a stage equal to the CPU reader's (sort values, docs and
+    collapse keys exact, scores within RTOL). Returns the figures under
+    each reader's name and the launches."""
+    from rucene_tpu_torch import native, parse_query_string
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.search import executor, phrase_path, span_native
+    from rucene_tpu_torch.search.rescorer import QueryRescorer
+    from rucene_tpu_torch.util.metrics import METRICS
+    from torch_hitcheck import RTOL, assert_topdocs_strict
+
+    if not native.available or not span_native._register():
+        raise AssertionError("the native span evaluator (rtpu_span_eval) did not build")
+    kernel_counters = {"decode_blocks": cuda_decode.LAUNCH_COUNTER,
+                       "decode_score_blocks": cuda_decode.SCORE_LAUNCH_COUNTER,
+                       "combine_lanes": cuda_combine.LAUNCH_COUNTER}
+    entries = [0]  # combine entries handed to the kernel in a stage
+    native_calls: list = []
+    real_combine, real_eval = executor.combine_lanes, span_native.eval_spans
+
+    def combine_counted(bucket_ptr, target, sc, e_item, *rest):
+        entries[0] += int(e_item.numel())
+        return real_combine(bucket_ptr, target, sc, e_item, *rest)
+
+    def eval_counted(*a, **kw):
+        res = real_eval(*a, **kw)
+        native_calls.append(res is not None)
+        return res
+
+    def stage(fn):
+        """(result, seconds, counters, combine entries) of fn(), its counts
+        set to 0 just before and read just after."""
+        torch.cuda.synchronize()
+        METRICS.reset()
+        entries[0] = 0
+        native_calls.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, METRICS.snapshot()["counters"], entries[0]
+
+    s_rows, c_rows, n_rows, r_rows, e_rows = (rows[s] for s in "SCNRE")
+    out = {"launches": dict.fromkeys(kernel_counters, 0)}
+    results = {}
+    executor.combine_lanes, span_native.eval_spans = combine_counted, eval_counted
+    try:
+        for name, searcher in searchers.items():
+            guard = plain_decode_refused() if name == "packed" else contextlib.nullcontext()
+            fig: dict = {}
+            with guard:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                run_s = lambda: [searcher.search_sorted(q, K, srt) for q, srt in s_rows]  # noqa: E731
+                run_c = lambda: [searcher.search_collapse(q, K, "grp") for q in c_rows]  # noqa: E731
+                run_n = lambda: searcher.search_batch(n_rows, k=K)  # noqa: E731
+                t0 = time.perf_counter()
+                run_s()  # warm: the rank tables
+                run_c()
+                fig["warm_sc_s"] = time.perf_counter() - t0
+                keys = set(phrase_path._PLANE_CACHE)
+                run_n()  # warm: the span planes of terms first seen here
+                torch.cuda.synchronize()
+                built = {k: v for k, v in phrase_path._PLANE_CACHE.items() if k not in keys}
+                fig["span_planes"] = len(built)
+                fig["span_plane_mib"] = sum(
+                    p.numel() * p.element_size() + (0 if o is None else o.numel())
+                    for p, o, _ref in built.values()
+                ) / 2**20
+                s_res, s_sec, s_cnt, s_ent = stage(run_s)
+                c_res, c_sec, c_cnt, c_ent = stage(run_c)
+                n_res, n_sec, n_cnt, _ = stage(run_n)
+                n_native = list(native_calls)
+                firsts = searcher.search_batch([f for f, _ in r_rows], k=K)
+                r_res, r_sec, r_cnt, r_ent = stage(lambda: [
+                    QueryRescorer(q2, rescore_weight=2.0).rescore(searcher, first, top_n=50)
+                    for (_f, q2), first in zip(r_rows, firsts)
+                ])
+                picks = [(q, fd.doc, fd.score) for (q, _srt), res in zip(s_rows, s_res)
+                         for fd in res.field_docs[:1]][:72:12]
+                picks += [(q, d, sc) for q, res in zip(n_rows, n_res)
+                          for d, sc in res.score_docs[:1]][::17][:6]
+                picks += mix_pairs
+                e_res, e_sec, _e_cnt, _ = stage(lambda: [searcher.explain(q, d) for q, d, _s in picks])
+                parsed = [parse_query_string(s, "body") for s, _h in e_rows]
+                got_p = searcher.search_batch(parsed, k=K)
+                got_h = searcher.search_batch([h for _s, h in e_rows], k=K)
+                s_prof = profile_fn(run_s, passes=1)
+                n_prof = profile_fn(run_n, passes=1)
+                torch.cuda.synchronize()
+                fig["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            # gates
+            for st_name, cnt, ent in (("S", s_cnt, s_ent), ("C", c_cnt, c_ent), ("R", r_cnt, r_ent)):
+                if cnt.get(cuda_combine.LAUNCH_COUNTER, 0) <= 0 or ent <= 0:
+                    raise AssertionError(f"{name} stage {st_name}: the combine kernel combined "
+                                         f"{ent} entries in {cnt.get(cuda_combine.LAUNCH_COUNTER, 0)} "
+                                         "launches")
+            for st_name, cnt in (("S", s_cnt), ("C", c_cnt), ("N", n_cnt)):
+                k2 = cnt.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0)
+                if (name == "packed") != (k2 > 0):
+                    raise AssertionError(f"{name} stage {st_name}: {k2} scoring decode launches")
+            if s_cnt.get("route.host", 0) != 4 or c_cnt.get("route.host", 0) != 0:
+                raise AssertionError(f"{name}: host rows S {s_cnt.get('route.host', 0)} (want 4), "
+                                     f"C {c_cnt.get('route.host', 0)} (want 0)")
+            want_routes = {"synonym": 32, "span_unordered": 48, "host": 8, "device": 8,
+                           "phrase": 8, "mixed": 0}
+            got_routes = {r: n_cnt.get(f"route.{r}", 0) for r in want_routes}
+            if got_routes != want_routes:
+                raise AssertionError(f"{name} stage N: routes {got_routes}, want {want_routes}")
+            if len(n_native) < 8 or not all(n_native):
+                raise AssertionError(f"{name} stage N: nested rows' native evaluations {n_native}")
+            for (q, d, sc), ex in zip(picks, e_res):
+                if not ex.match or abs(ex.value - sc) > RTOL * max(1.0, abs(sc)):
+                    raise AssertionError(f"{name}: explain of {type(q).__name__} at doc {d} gave "
+                                         f"{ex.value}, search {sc}")
+            for (s, _h), a, b in zip(e_rows, got_p, got_h):
+                if a != b or a.total_hits <= 0:
+                    raise AssertionError(f"{name}: {s!r} served {a.total_hits} hits unlike its "
+                                         "hand-built query")
+            fig.update({
+                "sorted_qps": len(s_rows) / s_sec, "collapse_qps": len(c_rows) / c_sec,
+                "span_qps": len(n_rows) / n_sec, "rescore_ms_row": 1e3 * r_sec / len(r_rows),
+                "explain_ms_call": 1e3 * e_sec / len(picks),
+                "sorted_kernel_ms_busy": list(s_prof[:2]), "span_kernel_ms_busy": list(n_prof[:2]),
+                "combine_entries": {"S": s_ent, "C": c_ent, "R": r_ent},
+                "span_host_spill": n_cnt.get("search.span_host_spill", 0),
+                "launches": {k: sum(c.get(v, 0) for c in (s_cnt, c_cnt, n_cnt, r_cnt))
+                             for k, v in kernel_counters.items()},
+            })
+            for k, v in fig["launches"].items():
+                out["launches"][k] += v
+            out[name] = fig
+            results[name] = (s_res, c_res, n_res, r_res, got_p)
+            log(f"{name} query surface on {card}: sorted {fig['sorted_qps']:.1f} QPS ({len(s_rows)} "
+                f"rows, 4 on the host), collapse {fig['collapse_qps']:.1f} QPS, spans and synonyms "
+                f"{fig['span_qps']:.1f} QPS ({len(n_rows)} rows, routes {got_routes}, "
+                f"span_host_spill {fig['span_host_spill']}, {sum(n_native)} native span "
+                f"evaluations), rescore {fig['rescore_ms_row']:.2f} ms a row, explain "
+                f"{fig['explain_ms_call']:.2f} ms a call; combine entries {fig['combine_entries']}; "
+                f"launches {fig['launches']}; sorted pass {s_prof[0]:.2f} ms of kernels, busy "
+                f"{100 * s_prof[1]:.1f}%; span pass {n_prof[0]:.2f} ms, busy {100 * n_prof[1]:.1f}%; "
+                f"{fig['span_planes']} span planes built ({fig['span_plane_mib']:.1f} MiB); peak "
+                f"{fig['peak_gib']:.2f} GiB")
+    finally:
+        executor.combine_lanes, span_native.eval_spans = real_combine, real_eval
+
+    dec, pkd = results["decoded"], results["packed"]
+    for i, (a, b) in enumerate(zip(dec[0], pkd[0])):
+        if not field_docs_equal(b, a):
+            raise AssertionError(f"packed sorted row {i} differs from the decoded run")
+    for st_name, a_list, b_list in zip("CNRE", dec[1:], pkd[1:]):
+        for i, (a, b) in enumerate(zip(a_list, b_list)):
+            if a != b:
+                raise AssertionError(f"packed stage {st_name} row {i} differs from the decoded run")
+    log("packed answers equal the decoded ones bit for bit (S, C, N, R and the parsed rows)")
+
+    t0 = time.perf_counter()
+    for i in (0, 9, 32, 41, 64, 70, 72, 75):
+        q, srt = s_rows[i]
+        if not field_docs_equal(dec[0][i], cpu_searcher.search_sorted(q, K, srt), exact=False):
+            raise AssertionError(f"sorted row {i} differs from the CPU run")
+    for i in (0, 7, 16, 31, 32, 35, 38, 39):
+        want = cpu_searcher.search_collapse(c_rows[i], K, "grp")
+        if [d for d, _ in dec[1][i].score_docs] != [d for d, _ in want.score_docs]:
+            raise AssertionError(f"collapse row {i}: best docs differ from the CPU run")
+        assert_topdocs_strict(dec[1][i], want)
+    n_idx = (0, 31, 32, 63, 64, 80, 88, 96)
+    for i, want in zip(n_idx, cpu_searcher.search_batch([n_rows[i] for i in n_idx], k=K)):
+        assert_topdocs_strict(dec[2][i], want)
+    r_idx = (0, 5, 12, 23, 24, 27, 29, 31)
+    firsts = cpu_searcher.search_batch([r_rows[i][0] for i in r_idx], k=K)
+    for i, first in zip(r_idx, firsts):
+        want = QueryRescorer(r_rows[i][1], rescore_weight=2.0).rescore(cpu_searcher, first, top_n=50)
+        assert_topdocs_strict(dec[3][i], want)
+    e_idx = (0, 1, 2, 3, 4, 6, 7, 8)
+    for i, want in zip(e_idx, cpu_searcher.search_batch(
+            [parse_query_string(e_rows[i][0], "body") for i in e_idx], k=K)):
+        assert_topdocs_strict(dec[4][i], want)
+    log(f"8 rows of each of S, C, N, R and E match the CPU run ({time.perf_counter() - t0:.1f}s)")
     return out
 
 
@@ -1534,6 +1926,7 @@ def main() -> int:
     mixed_q = mixed_queries(texts[:5000], vocab, probs)  # phase 10's rows
     extras_q, head_extras_q = extras_queries(vocab, probs)
     filter_a, filter_b, host_q = filter_queries(texts[:5000], vocab, probs)  # phase 11's rows
+    surface_q = surface_queries(texts[:5000], vocab, probs)  # phase 13's rows
     packed = pack_corpus(texts)
     del texts
     from rucene_tpu_torch.util.packing import EF_TAG
@@ -1766,6 +2159,13 @@ def main() -> int:
         {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, filter_a, filter_b,
         host_q, card, full,
     )
+
+    # 13. the query surface on both readers: sorted search, collapse, spans
+    # and synonyms, rescoring, explain and the query-string parser
+    mix_pairs = [(queries[i], *mix_results[i].score_docs[0]) for i in (0, 3, 5, 7)]
+    p13 = serve_query_surface(
+        {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, surface_q, mix_pairs, card,
+    )
     del cpu_reader, cpu_searcher
 
     # 12. NRT on the card, after releasing phases 1-11's device state
@@ -1783,21 +2183,23 @@ def main() -> int:
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
          "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"]
-         + p11["launches"]["decode_blocks"] + nrt_launches["decode_blocks"],
+         + p11["launches"]["decode_blocks"] + p13["launches"]["decode_blocks"]
+         + nrt_launches["decode_blocks"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
          "launches": k2_launches + p10["launches"]["decode_score_blocks"]
-         + p11["launches"]["decode_score_blocks"] + nrt_launches["decode_score_blocks"],
+         + p11["launches"]["decode_score_blocks"] + p13["launches"]["decode_score_blocks"]
+         + nrt_launches["decode_score_blocks"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
          "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"]
-         + nrt_launches["combine_lanes"],
+         + p13["launches"]["combine_lanes"] + nrt_launches["combine_lanes"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
@@ -1816,6 +2218,7 @@ def main() -> int:
         "filter_dense_bytes_per_row_doc": p11["dense_bytes_per_row_doc"],
         "filter_planes": p11["planes"], "host_rows": len(host_q),
         "host_s": [p11["decoded_host_s"], p11["packed_host_s"]],
+        "query_surface": {"decoded": p13["decoded"], "packed": p13["packed"]},
         "nrt": p12, "nrt_launches": nrt_launches}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ either package (index/reader.open_directory_reader) and serves NRT readers
 (SearcherManager). It serves batches of BM25 queries built from the query
 classes below:
 term, boolean, phrase, range / exists / prefix filter, dismax,
-constant-score, boosting and match-all rows, with postings resident on the
-device, decoded or packed. Rows the reference answers on its device path
+constant-score, boosting, match-all, span (search/spans.py) and query-string
+(parse_query_string) rows, with postings resident on the device, decoded or
+packed; sorted search and field collapse (IndexSearcher.search_sorted,
+search_collapse), rescoring (search/rescorer.QueryRescorer), explain and
+the highlighter (highlight.FastVectorHighlighter) beside them. Rows the reference answers on its device path
 run on the torch device; the rest run on the numpy host engine, as the
 reference's do (search/searcher.py). The postings decoders and the dense
 combine are CUDA kernels (csrc/); plain PyTorch twins serve CPU tensors.
@@ -55,6 +58,7 @@ from rucene_tpu_torch.search.query import (
     PrefixQuery,
     TermQuery,
 )
+from rucene_tpu_torch.search.query_string import parse_query_string
 from rucene_tpu_torch.search.searcher import IndexSearcher, ScoreDoc, TopDocs
 from rucene_tpu_torch.search.similarity import BM25Similarity
 from rucene_tpu_torch.search.sort_field import Sort, SortField
@@ -79,6 +83,7 @@ __all__ = [
     "SortField",
     "TieredMergePolicy",
     "open_directory_reader",
+    "parse_query_string",
     "BM25Similarity",
     "BinaryDocValuesField",
     "BooleanQuery",

@@ -30,12 +30,16 @@ kernel (ops/cuda_decode.decode_blocks, K1) over the chunk's gathered block
 tables; on a decoded leaf they are row gathers of the resident planes
 (``work_lanes``). The reference's ``lax.scan`` over BUILD_CHUNK items is a
 plain chunk loop. Left out: ``MAX_BUILD_ITEMS`` and its slicing in the
-caller (a TPU worker fault), the pow2 work padding, and the
-span-unordered functions (ROADMAP.md §1 item 9).
+caller (a TPU worker fault), and the pow2 work padding.
+
+Unordered span-near rows (``span_unordered_plane_search_many``) use the
+same planes: per window width, an AND of each term's smeared plane with
+witness bits at both ends, popcounts weighted by the sloppy factor.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rucene_tpu_torch.ops import cuda_decode
@@ -206,3 +210,79 @@ def phrase_plane_search_many(
     hits = match.sum(1).to(torch.int32)
     ov_count = needs_host.sum(1).to(torch.int32)
     return top_scores, top_docs, hits, ov_count
+
+
+def _span_unordered_pf(planes_row, n_terms: int, slop: int) -> torch.Tensor:
+    """Exact unordered span-near frequency per doc from one row's position
+    planes (the host contract of spans.py's SpanNearQuery unordered
+    enumeration): an interval [s, s + w) counts iff every clause occurs
+    inside it, some clause occurs at each end, and the two end witnesses
+    are distinct clauses; the sloppy freq sums 1 / (1 + w - n) over them.
+    With one term a position this is bit algebra per width w in
+    [n, n + slop] (w - 1 < 32):
+      valid_w[p] = AND_t smear_w(P_t)[p] & U[p] & U[p + w - 1]
+                   & ~OR_t (P_t[p] & P_t[p + w - 1])
+    with U the OR of the planes. Duplicate clause terms break the
+    distinctness reduction: the caller keeps such rows on the host.
+
+    The widths add in ascending order, as the reference's do, each as one
+    fused multiply-add ``pf = f32(cnt * wgt + pf)``: XLA contracts the
+    reference's ``pf + cnt * wgt`` into an FMA, so a separate f32 product
+    and sum differ from it by an ULP. The FMA is computed in f64, where
+    ``cnt * wgt + pf`` is exact (an 8-bit count times a 24-bit weight plus
+    an f32 within 2^8), then rounded once."""
+    u = planes_row[0]
+    for t in range(1, n_terms):
+        u = u | planes_row[t]
+    smears = list(planes_row)
+    pf = None
+    for w in range(2, n_terms + slop + 1):
+        sh = w - 1
+        smears = [s | _shift_right(p, sh) for s, p in zip(smears, planes_row)]
+        if w < n_terms:
+            continue
+        allin = smears[0]
+        for t in range(1, n_terms):
+            allin = allin & smears[t]
+        pair_bad = planes_row[0] & _shift_right(planes_row[0], sh)
+        for t in range(1, n_terms):
+            pair_bad = pair_bad | (planes_row[t] & _shift_right(planes_row[t], sh))
+        valid = allin & u & _shift_right(u, sh) & ~pair_bad
+        prod = _popcount_words(valid).double() * float(np.float32(1.0) / np.float32(1 + w - n_terms))
+        pf = (prod if pf is None else prod + pf.double()).float()
+    if pf is None:  # n_terms < 2: the caller never sends one
+        pf = torch.zeros(planes_row[0].shape[0], dtype=torch.float32, device=planes_row[0].device)
+    return pf
+
+
+def span_unordered_plane_search_many(
+    planes: tuple,  # flat, row-major: R rows x n_terms x i32[md, words]
+    overflows: tuple,  # R x n_terms x bool[md]
+    live: torch.Tensor,  # bool[md]
+    denoms: tuple,  # R x f32[md]
+    weights: torch.Tensor,  # f32[R]
+    k: int,
+    n_terms: int,
+    slop: int,
+) -> tuple:
+    """R unordered span-near rows of one (arity, slop) at once, the
+    contract of phrase_plane_search_many: rows with ov_count > 0 rerun on
+    the host. Returns (scores f32[R, k], docs i32[R, k], hits i32[R],
+    ov_count i32[R])."""
+    pf_rows, needs_rows = [], []
+    for r in range(len(planes) // n_terms):
+        p = planes[r * n_terms : (r + 1) * n_terms]
+        o = overflows[r * n_terms : (r + 1) * n_terms]
+        pf_rows.append(_span_unordered_pf(p, n_terms, slop))
+        ov_any = o[0]
+        present_all = (p[0] != 0).any(-1) | o[0]
+        for j in range(1, n_terms):
+            ov_any = ov_any | o[j]
+            present_all = present_all & ((p[j] != 0).any(-1) | o[j])
+        needs_rows.append(present_all & ov_any & live)
+    pf = torch.stack(pf_rows)
+    needs_host = torch.stack(needs_rows)
+    match = (pf > 0) & live & ~needs_host
+    score = weights[:, None] * pf / (pf + torch.stack(denoms))
+    top_scores, top_docs = topk_score_doc(torch.where(match, score, -torch.inf), k)
+    return top_scores, top_docs, match.sum(1).to(torch.int32), needs_host.sum(1).to(torch.int32)

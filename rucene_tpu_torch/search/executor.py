@@ -1,7 +1,8 @@
 """The batched boolean/BM25 executors (counterpart of
 rucene_tpu/search/executor.py: execute_flat_impl with its RowExtras,
 execute_flat_single, execute_flat_single_dec, execute_planes,
-execute_flat_pair, execute_match_all and execute_mixed_planes).
+execute_flat_pair, execute_match_all, execute_mixed_planes,
+execute_flat_sorted, execute_collapse, execute_probe and execute_synonym).
 
 A batch of queries runs against one segment as a FLAT WORK LIST, one item
 per (query, clause, 128-doc block):
@@ -48,7 +49,11 @@ executor with RowExtras applied to each (row, doc) sum before the match;
 match-all rows take execute_match_all; mixed rows (term clauses plus one
 exact phrase) take execute_mixed_planes: the term clauses' dense
 accumulators through the combine kernel (_dense_match) and the phrase's
-position planes (ops/phrase_plane.phrase_freqs).
+position planes (ops/phrase_plane.phrase_freqs). Sorted, collapse and
+probe rows (search/sorted_path.py, the rescorer) take _dense_match too
+and read its [B, md] match and scores by sort key, collapse key or doc;
+synonym rows (SpanOrQuery over terms) sum their members' tfs densely and
+score once.
 
 Clause kinds follow BooleanQuery: SHOULD=0 MUST=1 FILTER=2 MUST_NOT=3, and
 OCC_DEMOTE=4 for a BoostingQuery's negative members.
@@ -212,7 +217,13 @@ def dense_strategy(b: int, md: int, n_items: int, strategy: str = "auto") -> boo
 def decode_score_lanes(dev: DeviceSegment, q: FlatQueryBatch):
     """Decode each item's block and score its lanes. Returns (target
     i32[W,128] doc id or md+1 for invalid lanes, sc f32[W,128], valid
-    bool[W,128]).
+    bool[W,128])."""
+    return _decode_lanes(dev, q)[:3]
+
+
+def _decode_lanes(dev: DeviceSegment, q: FlatQueryBatch):
+    """decode_score_lanes with each lane's term frequency: (target, sc,
+    valid, freqs i32[W,128], 0 on invalid lanes).
 
     With dedup tables the decode runs once per distinct block and its lanes
     expand to items through wi_inv: an item's lanes are valid where its
@@ -248,7 +259,7 @@ def decode_score_lanes(dev: DeviceSegment, q: FlatQueryBatch):
     sc = q.wi_weight[:, None] * tf / (tf + cval)
     sc = torch.where(valid, sc, 0.0)
     target = torch.where(valid, docs, md + 1)
-    return target, sc, valid
+    return target, sc, valid, torch.where(valid, freqs, 0)
 
 
 def _combine_dense(q, target, sc, valid, b, md, combine):
@@ -483,6 +494,110 @@ def execute_mixed_planes(
     hits = match.sum(1, dtype=torch.int32)
     ov_count = (needs_host & match_t).sum(1, dtype=torch.int32)
     return top_scores, top_docs, hits, ov_count
+
+
+def execute_flat_sorted(
+    dev: DeviceSegment,
+    q: FlatQueryBatch,
+    combine: tuple[CombineBatch, ...],  # flat_tables.build_combine_batch of q's work
+    keycol: torch.Tensor,  # f32[md] order-preserving sort key (rank) per doc
+    k: int,
+    filters: FilterPlanes | None = None,
+):
+    """Sort-by-field search (field_comparator.rs:367): the dense boolean
+    match (_dense_match), then the top-k by (key asc, doc asc) over a
+    per-doc key column of ranks (exact in f32 below 2^24 distinct keys;
+    the caller folds directions into them and maps ranks back to
+    values). Returns (top_keys f32[B,k], scores f32[B,k], docs i32[B,k],
+    total_hits i32[B])."""
+    match, acc_score = _dense_match(dev, q, combine, filters)
+    sortval = torch.where(match, -keycol[None, :], -torch.inf)
+    top_negkeys, top_docs = topk_score_doc(sortval, k)
+    got = top_negkeys > -torch.inf
+    top_keys = torch.where(got, -top_negkeys, 0.0)
+    safe = top_docs.clamp(0, dev.max_doc_padded - 1).long()
+    scores = torch.where(got, torch.gather(acc_score, 1, safe), -torch.inf)
+    return top_keys, scores, top_docs, match.sum(1, dtype=torch.int32)
+
+
+def execute_collapse(
+    dev: DeviceSegment,
+    q: FlatQueryBatch,
+    combine: tuple[CombineBatch, ...],
+    keycol: torch.Tensor,  # i32[md] collapse-key rank per doc
+    n_keys: int,
+    filters: FilterPlanes | None = None,
+):
+    """Field collapse (collapse_top_docs.rs:239): the best (score desc, doc
+    asc) hit per collapse key, as a scatter-max of the matched scores per
+    key, then a scatter-min of the doc ids that reach their key's best.
+    Keys outside [0, n_keys) are dropped. Returns (best_score f32[B, K],
+    -inf for an absent key; best_doc i32[B, K]; total_hits i32[B]); the
+    caller merges leaves and takes the top-k."""
+    match, acc_score = _dense_match(dev, q, combine, filters)
+    b, md = match.shape
+    trash = b * n_keys
+    inside = (keycol >= 0) & (keycol < n_keys)
+    rows = torch.arange(b, device=match.device)[:, None]
+    slot = torch.where(inside[None, :], rows * n_keys + keycol.long()[None, :], trash)
+    msc = torch.where(match, acc_score, -torch.inf)
+    best = torch.full((trash + 1,), -torch.inf, dtype=torch.float32, device=match.device)
+    best.scatter_reduce_(0, slot.reshape(-1), msc.reshape(-1), "amax")
+    at_best = match & inside[None, :] & (acc_score == best[slot])
+    doc_ids = torch.arange(md, dtype=torch.int32, device=match.device)
+    mdoc = torch.where(at_best, doc_ids[None, :], DOC_PAD)
+    best_doc = torch.full((trash + 1,), DOC_PAD, dtype=torch.int32, device=match.device)
+    best_doc.scatter_reduce_(0, slot.reshape(-1), mdoc.reshape(-1), "amin")
+    return (
+        best[:trash].view(b, n_keys),
+        best_doc[:trash].view(b, n_keys),
+        match.sum(1, dtype=torch.int32),
+    )
+
+
+def execute_probe(
+    dev: DeviceSegment,
+    q: FlatQueryBatch,  # one row
+    combine: tuple[CombineBatch, ...],
+    probe_docs: torch.Tensor,  # i32[P] local doc ids
+    filters: FilterPlanes | None = None,
+):
+    """One row evaluated densely, read at given docs: (ok bool[P], score
+    f32[P], 0 where not ok) -- the rescorer's second-pass lookup
+    (rescorer.rs:130 QueryRescorer::combine inputs)."""
+    match, acc_score = _dense_match(dev, q, combine, filters)
+    safe = probe_docs.clamp(0, dev.max_doc_padded - 1).long()
+    ok = (probe_docs >= 0) & match[0, safe]
+    return ok, torch.where(ok, acc_score[0, safe], 0.0)
+
+
+def execute_synonym(
+    dev: DeviceSegment,
+    q: FlatQueryBatch,  # a row per SpanOrQuery, its member terms as clauses
+    fid_row: torch.Tensor,  # i32[B] norms / cache row of the row's field
+    w_row: torch.Tensor,  # f32[B] boost * sum(member idf) * (k1 + 1)
+    k: int,
+):
+    """SpanOrQuery over plain term members (span_or.rs through SpanScorer):
+    every span has width 1, so freq(doc) is the SUM of the member tfs and
+    the score ONE BM25 application with the summed-idf weight, unlike the
+    boolean executor's score per clause. Member tfs sum into a dense
+    [B, md] plane (integers, exact in any order), the per-doc norm reads
+    the field's norms row, then the dense top-k. Returns (scores
+    f32[B,k], docs i32[B,k], total_hits i32[B])."""
+    b = q.n_required.shape[0]
+    md = dev.max_doc_padded
+    target, _sc, _valid, freqs = _decode_lanes(dev, q)
+    idx = torch.where(target < md, q.wi_row.long()[:, None] * md + target, b * md)
+    tf = torch.zeros(b * md + 1, dtype=torch.float32, device=target.device)
+    tf.index_put_((idx.reshape(-1),), freqs.reshape(-1).to(torch.float32), accumulate=True)
+    tf = tf[: b * md].view(b, md)
+    fid = fid_row.long()
+    cval = torch.gather(q.cache[fid], 1, dev.norms[fid].long())
+    match = (tf > 0.0) & dev.live[None, :]
+    score = w_row[:, None] * tf / (tf + cval)
+    top_scores, top_docs = topk_score_doc(torch.where(match, score, -torch.inf), k)
+    return top_scores, top_docs, match.sum(1, dtype=torch.int32)
 
 
 class PlaneBatch(NamedTuple):

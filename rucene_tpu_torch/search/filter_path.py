@@ -14,9 +14,15 @@ leaf by (id(packed), name), and one PackedSegment may be served by
 readers on several devices (IndexReader.to), so a plane built for one
 device must never be handed to another.
 
+The mixin also holds the reference's two other one-executor paths of
+this module: synonym rows (``_search_synonym_device``: a SpanOrQuery over
+plain terms, executor.execute_synonym) and the rescorer's probe
+(``_probe_device``: one rewritten row read at given docs,
+executor.execute_probe, through the combine kernel).
+
 Left out of the reference: ``_view_filters`` (the combined multi-segment
-view, ROADMAP.md §1 item 10), the synonym device path and
-``_probe_device`` (item 9), and the pow2 pad of the stack.
+view, ROADMAP.md §1 item 10) and the pow2 pads of the stack, the synonym
+batch and the probe list.
 """
 
 from __future__ import annotations
@@ -25,8 +31,16 @@ import numpy as np
 import torch
 
 from rucene_tpu_torch.search.cache import DEFAULT_QUERY_CACHE, DEVICE_PLANE_CACHE
-from rucene_tpu_torch.search.executor import FilterPlanes
-from rucene_tpu_torch.search.flat_tables import build_range_filter_tables
+from rucene_tpu_torch.search.executor import FilterPlanes, execute_probe, execute_synonym
+from rucene_tpu_torch.search.flat_tables import (
+    build_clause_tables,
+    build_combine_batch,
+    build_flat_work,
+    build_leaf_cache,
+    build_leaf_tables,
+    build_range_filter_tables,
+    make_flat_batch,
+)
 from rucene_tpu_torch.search.query import Occur
 
 
@@ -81,3 +95,98 @@ class FilterPathMixin:
             not rq.ranges or any(c.occur in (Occur.MUST, Occur.FILTER) for c in rq.clauses)
             for rq in rqs
         )
+
+    # --- synonym device path ---
+    def _search_synonym_device(self, queries, k: int, _defer: bool = False):
+        """SpanOrQuery rows over plain term members: freq(doc) is the sum of
+        the member tfs, scored by ONE BM25 application with the summed-idf
+        weight (span_or.rs through SpanScorer's width-1 spans). One
+        executor.execute_synonym call a leaf for the whole batch.
+        _defer=True returns a finish() closure that reads the results."""
+        sim = self.similarity
+        infos = [q.synonym_terms() for q in queries]
+        b = len(infos)
+        t = max(len(ts) for _f, ts, _b in infos)
+
+        doc_freqs: dict[tuple[str, str], int] = {}
+        for field, texts, _b in infos:
+            for text in texts:
+                if (field, text) not in doc_freqs:
+                    doc_freqs[(field, text)] = self.reader.doc_freq(field, text)
+        stats = {f: self.collection_stats(f) for f, _ts, _b in infos}
+
+        w_row = np.zeros(b, np.float32)
+        for i, (field, texts, boost) in enumerate(infos):
+            st = stats[field]
+            doc_count = st.doc_count if st.doc_count != -1 else st.max_doc
+            idf_sum = np.float32(0.0)
+            for text in texts:
+                idf_sum = np.float32(idf_sum + sim.idf(doc_freqs[(field, text)], doc_count))
+            w = np.float32(idf_sum * np.float32(boost))
+            w_row[i] = np.float32(w * np.float32(sim.k1 + np.float32(1.0)))
+
+        n_required = np.zeros(b, np.int32)
+        min_should = np.ones(b, np.int32)
+        weight = np.ones((b, t), np.float32)
+        occur = np.zeros((b, t), np.int32)  # SHOULD
+        pending = []
+        for leaf in self.reader.leaves:
+            dev = leaf.device
+            cache = build_leaf_cache(leaf, sim, stats)
+            block_start = np.zeros((b, t), np.int32)
+            block_count = np.zeros((b, t), np.int32)
+            field_id = np.zeros((b, t), np.int32)
+            fid_row = np.zeros(b, np.int32)
+            for i, (field, texts, _b) in enumerate(infos):
+                pf = leaf.packed.fields.get(field)
+                if pf is None:
+                    continue
+                fid_row[i] = pf.field_id
+                for j, text in enumerate(texts):
+                    rec = leaf.term_record(field, text)
+                    if rec is not None:
+                        block_start[i, j] = rec.block_start
+                        block_count[i, j] = rec.block_count
+                        field_id[i, j] = pf.field_id
+            work = build_flat_work(block_start, block_count, weight, field_id, occur)[:6]
+            fq = make_flat_batch(work, n_required, min_should, cache, dev, dedupe=True)
+            d = leaf.torch_device
+            res = execute_synonym(
+                dev, fq, torch.from_numpy(fid_row).to(d), torch.from_numpy(w_row).to(d), k
+            )
+            pending.append((leaf.doc_base, res))
+
+        def finish():
+            per_query_leaf: list[list] = [[] for _ in range(b)]
+            for doc_base, res in pending:
+                s, dd, h = (x.cpu().numpy() for x in res)
+                for i in range(b):
+                    per_query_leaf[i].append((doc_base, dd[i], s[i], int(h[i])))
+            return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
+
+        return finish if _defer else finish()
+
+    def _probe_device(self, rq, leaf, locs, stats, doc_freqs):
+        """(match, score) of one rewritten row at given local docs of one
+        leaf: one dense executor call and a gather (executor.execute_probe),
+        the rescorer's second pass."""
+        sim = self.similarity
+        t = max(len(rq.all_slots()), 1)
+        weight, occur, n_required, min_should, _, _ = build_clause_tables(
+            [rq], sim, doc_freqs, stats, 1, t
+        )
+        dev = leaf.device
+        cache = build_leaf_cache(leaf, sim, stats)
+        bs, bc, fid = build_leaf_tables(leaf, [rq], 1, t)
+        work = build_flat_work(bs, bc, weight, fid, occur)[:6]
+        filters = (
+            self._leaf_filters(leaf, *self._range_filter_tables([rq], 1)) if rq.ranges else None
+        )
+        fq = make_flat_batch(work, n_required, min_should, cache, dev, dedupe=True)
+        combine = build_combine_batch(
+            work, 1, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc,
+            dev.max_doc_padded, dev.device,
+        )
+        probe = torch.from_numpy(np.asarray(locs, np.int32)).to(leaf.torch_device)
+        ok, sc = execute_probe(dev, fq, combine, probe, filters=filters)
+        return ok.cpu().numpy(), sc.cpu().numpy()

@@ -39,9 +39,18 @@ segment: a segment merged away in NRT serving goes once no reader holds
 it, and its device planes at the next plane fetch (drop_dead_planes; the
 reference's entries pin their segment until the LRU evicts them, under a
 budget of up to 16 GB). The scalar engine cache holds its segment.
-Position planes and denominator planes are keyed by (segment, torch
-device) as well. Left out: span groups and synonyms (ROADMAP.md §1 item
-9), the pow2 row pads, the static slop / has_ef programs,
+Position planes, span group planes (the OR of a SpanOr child's member
+planes) and denominator planes are keyed by (segment, torch device) as
+well.
+
+Span-near rows whose children are plain terms or SpanOr groups of plain
+terms, all distinct, ride the position planes too
+(_search_span_unordered_device, ``route.span_unordered``): unordered ones
+of slop <= 24 through ops/phrase_plane.span_unordered_plane_search_many,
+ordered slop-0 ones through phrase_plane_search_many over the group
+planes; rows that meet an overflow column rerun on the host
+(``search.span_host_spill``). Left out: the pow2 row pads, the static
+slop / has_ef programs,
 ``MAX_BUILD_ITEMS``' slicing of hot terms, and the ``search.plane_bytes``
 roofline counter.
 
@@ -765,6 +774,170 @@ class PhrasePathMixin:
         if _defer:
             return finish
         return finish()
+
+    def _span_group_info(self, q):
+        """(groups, slop, ordered, field, boost) when a SpanNearQuery can ride
+        the position planes, else None. groups: per child, its term texts
+        (a SpanTermQuery is a singleton, a SpanOrQuery of plain terms one
+        OR-plane group). All member terms must be distinct (a position then
+        names one child, so the witness algebra holds), member boosts 1,
+        2-8 children; unordered rows take slop <= 24, ordered ones only
+        slop 0 (greedy chain is consecutive there), and reach this route
+        only with SpanOr children (plain-term ordered rows rewrite to a
+        phrase through device_equivalent)."""
+        from rucene_tpu_torch.search.spans import (
+            SpanBoostQuery,
+            SpanNearQuery,
+            SpanOrQuery,
+            SpanTermQuery,
+        )
+
+        boost = None
+        while type(q) is SpanBoostQuery:
+            if boost is None:
+                boost = q.boost  # the outermost wrapper carries the total
+            q = q.query
+        if type(q) is not SpanNearQuery or not (2 <= len(q.clauses) <= 8):
+            return None
+        if q.in_order:
+            if q.slop != 0:
+                return None
+        elif not (0 <= q.slop <= 24):
+            return None
+        groups: list[list[str]] = []
+        for c in q.clauses:
+            if type(c) is SpanTermQuery and c.boost == 1.0:
+                groups.append([c.term.text])
+            elif (
+                type(c) is SpanOrQuery
+                and c.boost == 1.0
+                and c.clauses
+                and all(type(m) is SpanTermQuery and m.boost == 1.0 for m in c.clauses)
+            ):
+                groups.append([m.term.text for m in c.clauses])
+            else:
+                return None
+        flat = [t for g in groups for t in g]
+        if len(set(flat)) != len(flat):
+            return None
+        return groups, q.slop, q.in_order, q.field, (q.boost if boost is None else boost)
+
+    def _span_unordered_eligible(self, q) -> bool:
+        return self._span_group_info(q) is not None
+
+    def _search_span_unordered_device(self, queries, k: int, _defer: bool = False):
+        """Span-near rows on the position planes (span_near.rs
+        NearSpansUnordered; ordered slop-0 rows with SpanOr children as
+        exact phrases over group planes): one call per (leaf, (arity, slop,
+        order), chunk of rows), phrase_plane_search_many for the ordered
+        rows and span_unordered_plane_search_many for the rest. A row that
+        meets a plane's overflow column in a leaf is counted under
+        ``search.span_host_spill`` (once, at its first such leaf, as the
+        reference counts it) and reruns whole on the host route.
+        _defer=True returns a finish() closure that reads the results."""
+        from rucene_tpu_torch.ops.phrase_plane import (
+            phrase_plane_search_many,
+            span_unordered_plane_search_many,
+        )
+        from rucene_tpu_torch.search.flat_tables import build_leaf_cache
+
+        sim = self.similarity
+        b = len(queries)
+        infos = [self._span_group_info(q) for q in queries]
+        stats_of = [self._gather_stats_query(q) for q in queries]
+        futures = []  # (leaf, rows, result tensors)
+        for leaf in self.reader.leaves:
+            if self._past_deadline():
+                break
+            mdp = leaf.device.max_doc_padded
+            by_shape: dict[tuple, list[int]] = {}
+            for i in range(b):
+                groups, slop, ordered, _f, _b = infos[i]
+                by_shape.setdefault((len(groups), slop, ordered), []).append(i)
+            chunk_rows = max(1, min(self.PHRASE_PLANE_CHUNK, (self.PHRASE_PLANE_CHUNK << 20) // mdp))
+            for (nt, slop, ordered), idxs in sorted(by_shape.items()):
+                for c0 in range(0, len(idxs), chunk_rows):
+                    cells = []  # (gi, planes, overflows, denom, weight)
+                    for gi in idxs[c0 : c0 + chunk_rows]:
+                        groups, _slop, _ord, field, boost = infos[gi]
+                        doc_freqs, stats = stats_of[gi]
+                        pf_field = leaf.packed.fields.get(field)
+                        if pf_field is None or field not in stats:
+                            continue  # no such field here: no hits
+                        got = [self._group_plane_for(leaf, field, members) for members in groups]
+                        if any(g is None for g in got):
+                            continue  # a whole child absent here: no hits
+                        terms = [t for members in groups for t in members]
+                        cache = build_leaf_cache(leaf, sim, stats)
+                        fid = pf_field.field_id
+                        cells.append((
+                            gi, [g[0] for g in got], [g[1] for g in got],
+                            self._denom_plane_for(leaf, fid, cache[fid]),
+                            _idf_weight(sim, stats, doc_freqs, field, terms, boost),
+                        ))
+                    if not cells:
+                        continue
+                    args = (
+                        tuple(p for c in cells for p in c[1]),
+                        tuple(o for c in cells for o in c[2]),
+                        leaf.device.live, tuple(c[3] for c in cells),
+                        _put([c[4] for c in cells], leaf.torch_device, np.float32),
+                    )
+                    if ordered:
+                        # slop-0 ordered is consecutive alignment: the exact
+                        # phrase AND-shift over the group planes
+                        res = phrase_plane_search_many(*args, k=k, n_terms=nt)
+                    else:
+                        res = span_unordered_plane_search_many(*args, k=k, n_terms=nt, slop=slop)
+                    futures.append((leaf, [c[0] for c in cells], res))
+
+        def finish() -> list:
+            per_query_leaf: list[list] = [[] for _ in range(b)]
+            spilled: set[int] = set()
+            for leaf, gis, res in futures:
+                s, d, h, ovc = (x.cpu().numpy() for x in res)
+                for li, gi in enumerate(gis):
+                    if gi in spilled:
+                        continue
+                    if int(ovc[li]) > 0:
+                        spilled.add(gi)
+                        METRICS.incr("search.span_host_spill")
+                        continue
+                    keep = s[li] > -np.inf
+                    per_query_leaf[gi].append((leaf.doc_base, d[li][keep], s[li][keep], int(h[li])))
+            return [
+                self._search_host(queries[i], k) if i in spilled
+                else self._merge_leaf_hits(per_query_leaf[i], k)
+                for i in range(b)
+            ]
+
+        return finish if _defer else finish()
+
+    def _group_plane_for(self, leaf, field: str, members):
+        """(plane, overflow) of a span child: a term's position plane, or for
+        a SpanOr group the OR of its members' planes (the span union),
+        cached like term planes under the segment and device, so the ORs
+        run once per distinct group. None when no member is present."""
+        if len(members) == 1:
+            return self._phrase_plane_for(leaf, field, members[0])
+        key = _seg_key(leaf) + (field, ("or",) + tuple(sorted(members)))
+        got = _plane_hit(key, leaf.packed)
+        if got is not None:
+            return got[0], got[1]
+        gp = go = None
+        for t in members:
+            sub = self._phrase_plane_for(leaf, field, t)
+            if sub is None:
+                continue  # an absent member adds nothing to the union
+            gp = sub[0] if gp is None else (gp | sub[0])
+            go = sub[1] if go is None else (go | sub[1])
+        if gp is None:
+            return None
+        _PLANE_CACHE[key] = (gp, go, weakref.ref(leaf.packed))
+        budget = self._plane_budget_bytes(leaf)
+        while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget:
+            _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
+        return gp, go
 
     def _search_phrase_planes(self, leaf, rows, rqs, sim, stats, doc_freqs, k):
         """Exact rows via position planes, collected now: (done: gi ->

@@ -12,14 +12,26 @@ A batch splits by row kind, as the reference's does:
 - pure phrase rows (one PhraseQuery of 2-8 terms, MUST or SHOULD, with no
   other clause) and mixed rows (term clauses and up to 8 range clauses
   plus one required exact phrase) go to search/phrase_path.py;
+- synonym rows (a SpanOrQuery of plain SpanTermQuery members) go to
+  search/filter_path.py's synonym path, and span-near rows over plain
+  terms and SpanOr groups of them (unordered, or ordered with slop 0) to
+  the span-group route of search/phrase_path.py;
 - every other row (a rewrite that needs host evaluation, nested groups,
   more than 8 ranges, match-all beside clauses, a SHOULD, sloppy or
-  gapped phrase inside a boolean) goes to the host route: the numpy
-  engine of search/host_engine.py, one leaf at a time.
-The device paths are queued before any is collected, in that order, so the
-phrase work queues behind the term rows' kernels, and the host rows run
-while all of it is in flight. Counters ``route.device``, ``route.phrase``,
-``route.mixed`` and ``route.host`` count the rows of each.
+  gapped phrase inside a boolean, a nested span tree) goes to the host
+  route: the numpy engine of search/host_engine.py, one leaf at a time
+  (span trees through search/span_native.py's C++ evaluator).
+A query with a ``device_equivalent`` (SpanTermQuery, an ordered span-near
+of plain terms) is planned as that term or phrase row, as the reference's
+``_rewrite_query`` does. The device paths are queued before any is
+collected, in that order, so the phrase work queues behind the term rows'
+kernels, and the host rows run while all of it is in flight. Counters
+``route.device``, ``route.phrase``, ``route.mixed``, ``route.synonym``,
+``route.span_unordered`` and ``route.host`` count the rows of each.
+
+Beside search_batch: search_sorted, search_sorted_early_terminated and
+search_collapse (search/sorted_path.py), explain (search/explain.py) and,
+for the rescorer, _probe_device (search/filter_path.py).
 
 Device rows run per leaf on the searcher's torch device, over decoded or
 packed segments alike; leaf hits merge by (score desc, global doc asc).
@@ -61,7 +73,7 @@ term path and the mixed path; leaves not reached are skipped and
 ``timed_out`` is set, so results are partial, as the reference's are.
 
 Left out of the reference: WAND pruning, the combined multi-segment view,
-the span and synonym paths, and the A/B knobs RUCENE_PLANE_TERMS,
+and the A/B knobs RUCENE_PLANE_TERMS,
 RUCENE_PLANES_ROUTE_DIV, RUCENE_PAIR_PROBE and RUCENE_PAIR_TOPK (the pair
 route's probe variant is picked from the batch: one field for both
 clauses of every row, or not).
@@ -118,6 +130,7 @@ from rucene_tpu_torch.search.query import (
     _NeedsHostEval,
 )
 from rucene_tpu_torch.search.similarity import BM25Similarity, CollectionStats
+from rucene_tpu_torch.search.sorted_path import SortedPathMixin
 from rucene_tpu_torch.util.metrics import METRICS
 
 SPLIT_MIN_DOCS = 1 << 19  # corpus size from which mixed batches split by row class
@@ -177,7 +190,7 @@ def device_row(rq: RewrittenQuery | None) -> bool:
     )
 
 
-class IndexSearcher(PhrasePathMixin, FilterPathMixin):
+class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
     def __init__(
         self,
         reader: IndexReader,
@@ -242,15 +255,28 @@ class IndexSearcher(PhrasePathMixin, FilterPathMixin):
             i for i, p in enumerate(plans) if i not in taken and self._mixed_device_eligible(p.rq)
         ]
         taken |= set(mixed_idx)
+        syn_idx = [
+            i for i, q in enumerate(queries)
+            if i not in taken and getattr(q, "synonym_terms", None) is not None
+            and q.synonym_terms() is not None
+        ]
+        taken |= set(syn_idx)
+        spanu_idx = [
+            i for i, q in enumerate(queries)
+            if i not in taken and self._span_unordered_eligible(q)
+        ]
+        taken |= set(spanu_idx)
         host_idx = [i for i in range(len(plans)) if i not in taken]
         METRICS.incr("route.device", len(device_idx))
         METRICS.incr("route.phrase", len(phrase_idx))
         METRICS.incr("route.mixed", len(mixed_idx))
+        METRICS.incr("route.synonym", len(syn_idx))
+        METRICS.incr("route.span_unordered", len(spanu_idx))
         METRICS.incr("route.host", len(host_idx))
         # queue every device path before collecting any, in the reference's
-        # order: the phrase and mixed work queues behind the term rows'
-        # kernels, and the scalar phrase rows and the host rows run on the
-        # host while all of it is in flight
+        # order: the phrase, mixed, synonym and span work queues behind the
+        # term rows' kernels, and the scalar phrase rows and the host rows
+        # run on the host while all of it is in flight
         paths = []
         if device_idx:
             paths.append((device_idx, self._search_device(
@@ -265,6 +291,14 @@ class IndexSearcher(PhrasePathMixin, FilterPathMixin):
             paths.append((mixed_idx, self._search_mixed_device(
                 [queries[i] for i in mixed_idx], [plans[i].rq for i in mixed_idx], k,
                 _defer=True,
+            )))
+        if syn_idx:
+            paths.append((syn_idx, self._search_synonym_device(
+                [queries[i] for i in syn_idx], k, _defer=True
+            )))
+        if spanu_idx:
+            paths.append((spanu_idx, self._search_span_unordered_device(
+                [queries[i] for i in spanu_idx], k, _defer=True
             )))
         if host_idx:
             host_hits = [self._search_host(queries[i], k) for i in host_idx]
@@ -287,16 +321,28 @@ class IndexSearcher(PhrasePathMixin, FilterPathMixin):
         return False
 
     # --- shared helpers ---
+    @staticmethod
+    def _rewrite_query(q) -> RewrittenQuery | None:
+        """The row form of a query: its device_equivalent's rewrite where it
+        has one (a SpanTermQuery is a term row, an ordered span-near of
+        plain terms a phrase row), else its own; None when it needs host
+        evaluation."""
+        de = getattr(q, "device_equivalent", None)
+        if de is not None:
+            eq = de()
+            if eq is not None:
+                return eq.rewrite()
+        try:
+            return q.rewrite()
+        except (_NeedsHostEval, NotImplementedError):
+            return None
+
     def _plan_for(self, q) -> QueryPlan:
         pc = self._plan_cache
         ent = pc.get(id(q))
         if ent is not None and ent.q is q:
             return ent
-        try:
-            rq = q.rewrite()
-        except (_NeedsHostEval, NotImplementedError):
-            rq = None
-        plan = QueryPlan(q, rq)
+        plan = QueryPlan(q, self._rewrite_query(q))
         if len(pc) >= 16384:  # bounded: drop the oldest quarter
             for key in list(pc.keys())[:4096]:
                 pc.pop(key, None)
@@ -674,6 +720,14 @@ class IndexSearcher(PhrasePathMixin, FilterPathMixin):
             dev, q, k, pure_disjunction=pure, combine=combine, extras=extras,
             with_dismax=with_dismax, filters=filters,
         )
+
+    # --- explain (Weight::explain, term_query.rs:183-215) ---
+    def explain(self, query: Query, doc: int):
+        """The score explanation tree of ``query`` at global ``doc``
+        (search/explain.py): its value equals the score search returns."""
+        from rucene_tpu_torch.search.explain import explain as _explain
+
+        return _explain(self, query, doc)
 
     # --- host route ---
     def _search_host(self, query: Query, k: int) -> TopDocs:

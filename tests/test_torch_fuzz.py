@@ -13,7 +13,12 @@ of every kind go through both packages in one batch:
   or FILTER exact phrase, some with a range FILTER);
 - DisjunctionMax, ConstantScore and Boosting rows, and MatchAll rows;
 - host rows: nested clause groups, dismax over booleans, match-all
-  beside a clause, more than 8 ranges.
+  beside a clause, more than 8 ranges;
+- synonym rows (a SpanOrQuery of 2-3 terms) and unordered span-near rows
+  (2-3 distinct terms, slop 0-8), drawn after the rows above.
+A second fuzz serves random boolean rows sorted by 1-2 numeric doc-values
+fields (search_sorted) and collapsed by one (search_collapse) from both
+packages, sort values and doc ids exact.
 The port runs with the row-class split forced on
 (SPLIT_MIN_DOCS = 0) and a tf plane for every term (RUCENE_PLANES=1), on
 decoded and on packed leaves, so that every route fires: the single route
@@ -43,6 +48,7 @@ K_ALL = 1200  # above every row's hit count: complete lists
 # plane, so the rows that hold it take the pair route, not the planes
 HOT = "hot"
 N_ROWS = 160
+N_SPAN_ROWS = 24
 OCCURS = ("should", "must", "filter", "must_not")
 
 
@@ -197,6 +203,21 @@ def _draw(rng, words, bigrams):
     return lambda pkg: pkg.MatchAllDocsQuery(boost=boost)
 
 
+def _span_maker(rng, words):
+    """A synonym row or an unordered span-near row of distinct terms."""
+    from rucene_tpu.search import spans as ref_spans
+    from rucene_tpu_torch.search import spans as port_spans
+
+    terms = [str(w) for w in rng.choice(words, int(rng.integers(2, 4)), replace=False)]
+    near, slop = rng.random() < 0.5, int(rng.integers(0, 9))
+
+    def span(pkg):
+        sp = ref_spans if pkg is R else port_spans
+        members = [sp.SpanTermQuery(pkg.Term("body", t)) for t in terms]
+        return sp.SpanNearQuery(members, slop=slop, in_order=False) if near else sp.SpanOrQuery(members)
+    return span
+
+
 def _row_makers(texts, words):
     rng = np.random.default_rng(2024)
     bigrams = []
@@ -206,7 +227,9 @@ def _row_makers(texts, words):
             j = int(rng.integers(0, len(w) - 1))
             bigrams.append((w[j], w[j + 1]))
     vocab = words + ["zz_missing"]
-    return [_draw(rng, vocab, bigrams) for _ in range(N_ROWS)]
+    makers = [_draw(rng, vocab, bigrams) for _ in range(N_ROWS)]
+    span_rng = np.random.default_rng(2025)
+    return makers + [_span_maker(span_rng, words) for _ in range(N_SPAN_ROWS)]
 
 
 @pytest.fixture(scope="module")
@@ -236,7 +259,51 @@ def test_fuzz_routes_match_reference(corpus, deletes, decoded, monkeypatch):
     got = port_searcher(leaves).search_batch([b(T) for b in makers], k=K_ALL)
     assert_batches_strict(got, want)
     counters = METRICS.snapshot()["counters"]
-    moved = ["route.flat", "route.phrase", "route.mixed", "route.host", "search.strategy.dense"]
+    moved = ["route.flat", "route.phrase", "route.mixed", "route.host", "search.strategy.dense",
+             "route.synonym", "route.span_unordered"]
     moved += [] if deletes else ["route.single"]
     moved += ["route.plane_rows", "route.pair_rows"] if decoded == "1" else []
     assert all(counters.get(name, 0) > 0 for name in moved), sorted(counters.items())
+
+
+@pytest.mark.parametrize("deletes", [False, True])
+def test_fuzz_sorted_and_collapse_rows(deletes):
+    """Random boolean rows (1-4 term clauses of every occur, some with a
+    range) sorted by one or two doc-values fields in random directions,
+    and collapsed by one, from two segments: the reference's field docs
+    exactly, its collapse keys' best docs exactly."""
+    from rucene_tpu.search import sort_field as ref_sf
+    from rucene_tpu_torch.search import sort_field as port_sf
+    from tests.torch_surface_data import assert_field_docs_equal, both, dv_docs, leaves_for
+
+    ref, port = both(leaves_for(dv_docs(360, 41), 2, deletes, seed=41))
+    rng = np.random.default_rng(77)
+    from tests.conftest import WORDS
+
+    for _ in range(24):
+        n = int(rng.integers(1, 5))
+        terms = [str(w) for w in rng.choice(WORDS, n, replace=False)]
+        occs = [OCCURS[int(rng.integers(0, 4))] for _ in range(n)]
+        with_range = rng.random() < 0.3
+        fields = [str(f) for f in rng.choice(["price", "stock", "grp"], int(rng.integers(1, 3)), replace=False)]
+        revs = [bool(rng.random() < 0.5) for _ in fields]
+        collapse = str(rng.choice(["grp", "price"]))
+        k = int(rng.choice([5, 40]))
+
+        def row(pkg):
+            q = pkg.BooleanQuery()
+            for t, o in zip(terms, occs):
+                getattr(q, o)(_term(pkg, t))
+            if with_range or all(o == "must_not" for o in occs):
+                q.filter(pkg.PointRangeQuery("nope", 0, 1) if with_range else pkg.MatchAllDocsQuery())
+            return q
+
+        def sort(sf):
+            return sf.Sort([sf.SortField(f, sf.SortFieldType.LONG, reverse=r) for f, r in zip(fields, revs)])
+
+        assert_field_docs_equal(port.search_sorted(row(T), k, sort(port_sf)),
+                                ref.search_sorted(row(R), k, sort(ref_sf)))
+        got, want = port.search_collapse(row(T), k, collapse), ref.search_collapse(row(R), k, collapse)
+        assert got.total_hits == want.total_hits
+        assert [d for d, _ in got.score_docs] == [d for d, _ in want.score_docs]
+        assert_batches_strict([got], [want])

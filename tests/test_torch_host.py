@@ -5,7 +5,10 @@ the reference's modules.
     rucene_tpu_torch, build a 200-doc index and search it on the CPU, a
     filter row and a host row among the rows, then write the same docs
     with IndexWriter into a temporary FSDirectory, reopen them with
-    open_directory_reader and serve two rows: the card's host has no jax.
+    open_directory_reader and serve two rows, and serve a parsed query
+    string, a SpanOrQuery, an unordered SpanNearQuery, a sorted row and a
+    collapse row from an index with doc values: the card's host has no
+    jax.
 (b) Drift guard: every host module the port copies from rucene_tpu equals
     its original (syntax tree, module docstring aside) once the import
     prefix is mapped, apart from the definitions its docstring lists under
@@ -38,6 +41,8 @@ COPIED = [
     "doc/document.py",
     "doc/field.py",
     "doc/term.py",
+    "highlight/__init__.py",
+    "highlight/fvh.py",
     "index/doc_writer.py",
     "index/field_infos.py",
     "index/index_lookup.py",
@@ -49,14 +54,20 @@ COPIED = [
     "native/__init__.py",
     "ops/combine_tables.py",
     "search/cache.py",
+    "search/explain.py",
+    "search/explanation.py",
     "search/host_engine.py",
     "search/pair_path.py",
     "search/plane_path.py",
     "search/query.py",
+    "search/query_string.py",
+    "search/rescorer.py",
     "search/scalar_engine.py",
     "search/search_manager.py",
     "search/similarity.py",
     "search/sort_field.py",
+    "search/span_native.py",
+    "search/spans.py",
     "store/__init__.py",
     "store/directory.py",
     "tools/__init__.py",
@@ -123,6 +134,25 @@ with tempfile.TemporaryDirectory() as tmp:
     on_disk = [disk.search(q, 10) for q in (T.TermQuery(T.Term("body", "gamma")), q)]
     in_memory = [searcher.search(q, 10) for q in (T.TermQuery(T.Term("body", "gamma")), q)]
     leaves = len(disk.reader.leaves)
+from rucene_tpu_torch.search.sort_field import SortFieldType
+from rucene_tpu_torch.search.spans import SpanNearQuery, SpanOrQuery, SpanTermQuery
+
+w2 = T.IndexWriter(T.RAMDirectory(), T.IndexWriterConfig(max_buffered_docs=64))
+for i, text in enumerate(texts):
+    d = T.Document()
+    d.add(T.TextField("body", text))
+    d.add(T.NumericDocValuesField("rank", i % 17))
+    w2.add_document(d)
+dv = T.IndexSearcher(w2.get_reader(), device="cpu")
+st = lambda w: SpanTermQuery(T.Term("body", w))
+surface = dv.search_batch(
+    [T.parse_query_string('+alpha -"beta gamma"'), SpanOrQuery([st("zeta"), st("eta")]),
+     SpanNearQuery([st("alpha"), st("delta")], slop=2, in_order=False)],
+    k=10,
+)
+srt = dv.search_sorted(T.TermQuery(T.Term("body", "gamma")), 10,
+                       T.Sort([T.SortField("rank", SortFieldType.LONG, reverse=True)]))
+col = dv.search_collapse(T.TermQuery(T.Term("body", "gamma")), 10, "rank")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rucene_tpu"))
 print(json.dumps({
     "loaded": loaded,
@@ -130,6 +160,9 @@ print(json.dumps({
     "disk": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in on_disk],
     "memory": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in in_memory],
     "leaves": leaves,
+    "surface": [[h.total_hits, len(h.score_docs)] for h in surface],
+    "sorted": [srt.total_hits, [fd.fields[0] for fd in srt.field_docs]],
+    "collapse": [col.total_hits, len(col.score_docs)],
 }))
 """
 
@@ -153,6 +186,12 @@ def test_port_runs_without_jax():
     # (four segments) and opened with open_directory_reader
     assert out["leaves"] == 4
     assert out["disk"] == out["memory"] and out["disk"][0][0] == n1
+    # a parsed query string, a synonym row, an unordered span row, a sorted
+    # row and a collapse row
+    assert all(n > 0 and m == min(10, n) for n, m in out["surface"])
+    n_sorted, values = out["sorted"]
+    assert n_sorted > 0 and values == sorted(values, reverse=True) and len(values) == 10
+    assert out["collapse"][0] == n_sorted and 0 < out["collapse"][1] <= 10
 
 
 # --- (b) drift guard ----------------------------------------------------------

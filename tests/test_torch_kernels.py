@@ -510,3 +510,83 @@ def test_filter_and_host_rows_on_card_match_cpu(card, decoded, monkeypatch):
         METRICS.reset()
         assert_batches_strict(s.search_batch(complete, k=2000), want_complete)
         assert METRICS.snapshot()["counters"].get(f"search.strategy.{strategy}", 0) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decoded", ["0", "1"])
+def test_query_surface_on_card_matches_cpu(card, decoded, monkeypatch):
+    """Sorted and collapse rows, span and synonym rows (unordered, ordered
+    with a SpanOr child, nested on the host route) and the rescorer's probe
+    over two segments, one with deletes: the card's answers equal the
+    CPU's (sort values and docs exactly, scores under
+    tests/torch_hitcheck.py), the route counters are the CPU's, and no
+    plain decode twin runs on the card."""
+    from rucene_tpu_torch.codec.postings import pack_segment
+    from rucene_tpu_torch.index.memory import SegmentBuffer
+    from rucene_tpu_torch.search.rescorer import QueryRescorer
+    from rucene_tpu_torch.search.sort_field import SortFieldType
+    from rucene_tpu_torch.search.spans import SpanNearQuery, SpanOrQuery, SpanTermQuery
+
+    rng = np.random.default_rng(29)
+    words = [f"v{i}" for i in range(30)]
+
+    def seg(n):
+        buf = SegmentBuffer()
+        for _ in range(n):
+            d = T.Document()
+            d.add(T.TextField("body", " ".join(rng.choice(words, int(rng.integers(3, 30))))))
+            d.add(T.NumericDocValuesField("ts", int(rng.integers(0, 5000))))
+            d.add(T.NumericDocValuesField("grp", int(rng.integers(0, 40))))
+            buf.add_document(d)
+        return pack_segment(buf.finish())
+
+    segs = [seg(1500), seg(900)]
+    live = np.random.default_rng(3).random(segs[1].max_doc) > 0.3
+
+    def searcher(device):
+        return T.IndexSearcher(IndexReader([
+            SegmentSnapshot("a", segs[0]), SegmentSnapshot("b", segs[1], live=live),
+        ]), device=device)
+
+    def t(w):
+        return T.TermQuery(T.Term("body", str(w)))
+
+    def st(w):
+        return SpanTermQuery(T.Term("body", str(w)))
+
+    def or2(a, b):
+        return T.BooleanQuery().should(t(a)).should(t(b))
+
+    sort = T.Sort([T.SortField("grp", SortFieldType.LONG), T.SortField("ts", SortFieldType.LONG, reverse=True)])
+    keyed = [t(w) for w in rng.choice(words, 4)] + [or2(*rng.choice(words, 2, replace=False)) for _ in range(3)]
+    spans = [SpanOrQuery([st(w) for w in rng.choice(words, 2, replace=False)]) for _ in range(4)]
+    spans += [SpanNearQuery([st(w) for w in rng.choice(words, 3, replace=False)], slop=4, in_order=False)
+              for _ in range(4)]
+    spans += [SpanNearQuery([SpanOrQuery([st("v1"), st("v2")]), st("v3")], slop=0, in_order=True),
+              SpanNearQuery([SpanNearQuery([st("v0"), st("v1")], 2, True), st("v2")], 4, False)]
+
+    def serve(s):
+        METRICS.reset()
+        sorted_ = [s.search_sorted(q, 50, sort) for q in keyed]
+        collapsed = [s.search_collapse(q, 50, "grp") for q in keyed]
+        span_hits = s.search_batch(spans, k=2000)
+        routes = {k: v for k, v in METRICS.snapshot()["counters"].items() if k.startswith("route.")}
+        first = s.search(t("v5"), 60)
+        rescored = QueryRescorer(or2("v6", "v7"), 2.0).rescore(s, first, top_n=40)
+        return sorted_, collapsed, span_hits, routes, rescored
+
+    monkeypatch.setenv("RUCENE_DECODED", decoded)
+    phrase_path._PLANE_CACHE.clear()
+    want = serve(searcher("cpu"))
+    monkeypatch.setattr(cuda_decode, "decode_blocks_plain", _refuse)
+    monkeypatch.setattr(cuda_decode, "decode_score_blocks_plain", _refuse)
+    got = serve(searcher(card))
+    for g, w in zip(got[0], want[0]):
+        assert g.total_hits == w.total_hits
+        assert [(fd.doc, fd.fields) for fd in g.field_docs] == [(fd.doc, fd.fields) for fd in w.field_docs]
+    for g, w in zip(got[1], want[1]):
+        assert [d for d, _ in g.score_docs] == [d for d, _ in w.score_docs]
+    assert_batches_strict(got[1], want[1])
+    assert_batches_strict(got[2], want[2])
+    assert got[3] == want[3] and got[3]["route.span_unordered"] == 5 and got[3]["route.host"] == 1
+    assert_batches_strict([got[4]], [want[4]])
