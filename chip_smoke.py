@@ -88,8 +88,8 @@ Builds the CUDA kernels and the native library from this checkout, then:
      exactly 16 in C (and 0 in the bench mix). Logs each stage's QPS, A's
      kernel time and busy share, the dense batch's peak a (row, doc), the
      filter planes cached and the host stage's seconds;
- 12. NRT on the card (serve_nrt, after phases 1-11's device state is
-     released), in the shape of bench.py's main_nrt at its defaults: the
+ 12. NRT on the card (serve_nrt, after phases 1-11, 13 and 14's device
+     state is released), in the shape of bench.py's main_nrt at its defaults: the
      write path (IndexWriter, SearcherManager, deletes by term and by
      query, a merging refresh, FSDirectory, open_directory_reader,
      check_index) under a 45 s serving window with ingest; its gates and
@@ -97,7 +97,14 @@ Builds the CUDA kernels and the native library from this checkout, then:
      in the kernels' JSON rows. It also holds K1 and K3 at a flush
      segment's shapes against their plain twins (nrt_kernel_replay; the
      figures under ``nrt.replay``, K3's error in its row's max_abs_err).
-     It runs after phase 13.
+     Two stages ride it: the combined view (serve_combined: the reader of
+     the window's end, 55-60 leaves, through IndexSearcher(reader,
+     combine_segments=True), equal to the per-leaf answers, its build
+     seconds and ms a batch beside the per-leaf ones; ``nrt.combined``) and
+     the multi-process stage (serve_multi_process: the on-disk index opened
+     by ShardedIndex.from_directory in partial mode from one spawned
+     process a card, up to 4, over NCCL, equal to the one-process answers;
+     ``nrt.multi_process``). It runs after phases 13 and 14.
  13. the query surface on both readers (serve_query_surface; the rows of
      surface_queries, seed 29, after luceneutil's TermDTSort,
      HighTermMonthSort and TermGroup10K tasks, over the corpus's numeric
@@ -112,6 +119,16 @@ Builds the CUDA kernels and the native library from this checkout, then:
      hit) pairs and 16 query strings parsed and served. Its gates and
      figures are in serve_query_surface's docstring; the figures print
      under ``query_surface`` and its launches count in the kernels' rows.
+ 14. sharded search on both readers (serve_sharded; BASELINE.json config
+     5's segment-sharded index): ShardedIndex(make_mesh(4, 1), reader)
+     splits the one segment into 4 doc-range shards (one card: cuda:0
+     four times), each a combined view decoded through K1 (packed on the
+     packed reader), and ShardedSearcher serves the bench mix, the rows of
+     sharded_queries (the graft's sharded rows at bench widths, seed 31)
+     and the head-band rows. Its gates and figures are in serve_sharded's
+     docstring; the figures print under ``sharded``, its launches count in
+     the kernels' rows, and shard_kernel_replay holds K1, K2 and K3 at a
+     shard's shapes (K3's error in its row's max_abs_err).
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
@@ -122,6 +139,7 @@ pair_rows, plane_rows, phase 10's mixed_qps, mixed_packed_qps,
 extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc), and
 phase 11's filter_qps, filter_packed_qps, filter_kernel_ms_busy,
 filter_planes and host_rows, phase 13's figures under ``query_surface``,
+phase 14's under ``sharded`` with its launches under ``sharded_launches``,
 and phase 12's figures under ``nrt`` with its launches under
 ``nrt_launches``), the card's name and power limit, and the device line.
 """
@@ -1278,6 +1296,312 @@ def serve_query_surface(searchers, cpu_searcher, rows, mix_pairs, card):
     return out
 
 
+# --- phase 14: sharded search (parallel/sharded.py, BASELINE.json config 5) -
+
+SHARDS = 4  # the graft's mesh of 4 shards (__graft_entry__.py:300-303)
+SHARD_SEED = 31
+
+
+def sharded_queries(phrase_texts, vocab, probs, seed: int = SHARD_SEED):
+    """Phase 14's rows beside the bench mix: the sharded rows of
+    __graft_entry__.py:308-330 at the bench's widths, and rows the shard
+    program leaves to the fallback. Returns (rows, planned route counts).
+    16 boolean MUST + SHOULD rows over the bench's band (ranks 10-5000); 8
+    exact bigrams from phrase_texts, 4 sloppy ones (the pair reversed,
+    slop 2) and 4 ordered slop-0 SpanNearQuery rows (a phrase row through
+    device_equivalent); 8 ``ts`` windows of 1-30 days alone and 8 band
+    terms MUST beside a window MUST; then the fallback rows: 4 two-term
+    DisjunctionMax rows, 2 unordered SpanNearQuery rows (slop 4) and 2
+    exact bigrams MUST beside a band term SHOULD."""
+    from rucene_tpu_torch import (
+        BooleanQuery,
+        DisjunctionMaxQuery,
+        PhraseQuery,
+        PointRangeQuery,
+        Term,
+        TermQuery,
+    )
+    from rucene_tpu_torch.search.spans import SpanNearQuery, SpanTermQuery
+
+    rng = np.random.default_rng(seed)
+    term = band_sampler(vocab, probs, rng)
+    bigrams = sample_bigrams(phrase_texts, 32, seed=seed)
+
+    def t(w):
+        return TermQuery(Term("body", w))
+
+    def window():
+        lo = int(rng.integers(0, YEAR_S - 30 * 86400))
+        return PointRangeQuery("ts", lo, lo + int(rng.integers(1, 31)) * 86400 - 1)
+
+    def span(a, b, slop, in_order):
+        return SpanNearQuery([SpanTermQuery(Term("body", a)), SpanTermQuery(Term("body", b))],
+                             slop=slop, in_order=in_order)
+
+    rows = [BooleanQuery().must(t(term())).should(t(term())) for _ in range(16)]
+    rows += [PhraseQuery("body", list(bigrams[i])) for i in range(8)]
+    rows += [PhraseQuery("body", [bigrams[i][1], bigrams[i][0]], slop=2) for i in range(8, 12)]
+    rows += [span(*bigrams[i], 0, True) for i in range(12, 16)]
+    rows += [window() for _ in range(8)]
+    rows += [BooleanQuery().must(t(term())).must(window()) for _ in range(8)]
+    rows += [DisjunctionMaxQuery([t(term()), t(term())], tie_breaker=0.3) for _ in range(4)]
+    rows += [span(*bigrams[i], 4, False) for i in range(16, 18)]
+    rows += [BooleanQuery().must(PhraseQuery("body", list(bigrams[i]))).should(t(term()))
+             for i in range(18, 20)]
+    return rows, {"route.mesh": 32, "route.mesh_phrase": 16, "route.mesh_fallback": 8}
+
+
+def serve_sharded_sync(ss, queries, min_s: float = 4.0, max_reps: int = 6):
+    """(QPS, last pass's TopDocs) of passes over ``queries`` in batches of
+    BATCH through ShardedSearcher.search_batch."""
+    t0 = time.perf_counter()
+    reps = 0
+    results = []
+    while reps < 2 or (time.perf_counter() - t0 < min_s and reps < max_reps):
+        results = []
+        for i in range(0, len(queries), BATCH):
+            results.extend(ss.search_batch(queries[i:i + BATCH], k=K))
+        reps += 1
+    torch.cuda.synchronize()
+    return reps * len(queries) / (time.perf_counter() - t0), results
+
+
+def shard_kernel_replay(index, searcher, dense_q, dev) -> dict:
+    """K1, K2 and K3 at a shard's shapes against their plain twins on the
+    card: K1 over every block of shard 0's split view (its re-packed
+    straddling blocks included), bit for bit; K2 (on a packed index) over
+    the distinct blocks of the head-band rows ``dense_q`` on shard 0, bit
+    for bit; K3 over the same rows' combine call on shard 0's view (counts
+    equal, scores within 1e-5 relative). Times each against its twin."""
+    from rucene_tpu_torch.codec.device import build_device_segment
+    from rucene_tpu_torch.index.combined import build_combined_tables
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.search import executor, flat_tables
+
+    view, group = index.views[0], index.groups[0]
+    sp = group[0].packed
+    out: dict = {"shard_docs": int(sp.max_doc), "shard_blocks": int(view.n_blocks)}
+    seg = build_device_segment(sp, dev)
+    tables = (seg.data, seg.blk_off, seg.blk_doc_bits, seg.blk_freq_bits, seg.blk_base, seg.blk_count)
+    got = cuda_decode.decode_blocks(*tables, torch.int16)
+    want = cuda_decode.decode_blocks_plain(*tables, freq_dtype=torch.int16)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError("the decode kernel differs from its twin at a shard's shapes")
+    out["decode_blocks"] = {
+        "blocks": int(sp.num_blocks),
+        # straddling blocks re-packed past the segment's own words
+        "repacked": int((sp.blk_off >= len(searcher.reader.leaves[0].packed.data)).sum()),
+        "ms": cuda_ms(cuda_decode.decode_blocks, (*tables, torch.int16), reps=8, copies=2),
+        "plain_ms": cuda_ms(cuda_decode.decode_blocks_plain, (*tables, torch.int16), reps=2, copies=1),
+    }
+    del seg, tables, got, want
+    rqs = [searcher._plan_for(q).rq for q in dense_q]
+    doc_freqs, stats = searcher._gather_stats(rqs)
+    b = len(rqs)
+    weight, occur, n_req, min_sh, _ma, _bo = flat_tables.build_clause_tables(
+        rqs, searcher.similarity, doc_freqs, stats, b, 2
+    )
+    bs, bc, fid = build_combined_tables(view, group, rqs, b, 2)
+    work = flat_tables.build_flat_work(bs, bc, weight, fid, occur)[:6]
+    gdev = view.device
+    if not executor.dense_strategy(b, gdev.max_doc_padded, len(work[0])):
+        raise AssertionError("the head-band rows are not in the dense regime on a shard")
+    cache = np.zeros((max(len(index.field_gid), 1), 256), np.float32)
+    for name, g in index.field_gid.items():
+        cache[g] = searcher.similarity.cache_row(stats.get(name) if name in sp.norms else None)
+    q = flat_tables.make_flat_batch(work, n_req, min_sh, cache, gdev, dedupe=True)
+    if gdev.docs_dec is None:
+        ub, uf = q.wi_ublock.long(), q.wi_ufid
+        k2_args = (gdev.data, gdev.blk_off[ub], gdev.blk_doc_bits[ub], gdev.blk_freq_bits[ub],
+                   gdev.blk_base[ub], gdev.blk_count[ub], uf, q.cache)
+        got = cuda_decode.decode_score_blocks(*k2_args)
+        want = cuda_decode.decode_score_blocks_plain(*k2_args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            if not torch.equal(g, w):
+                raise AssertionError("the scoring decode kernel differs from its twin on a shard")
+        out["decode_score_blocks"] = {
+            "blocks": int(ub.numel()), "ms": cuda_ms(cuda_decode.decode_score_blocks, k2_args),
+            "plain_ms": cuda_ms(cuda_decode.decode_score_blocks_plain, k2_args, reps=5, copies=1),
+            "max_abs_err": 0,
+        }
+    cb = flat_tables.build_combine_batch(
+        work, b, view.blk_first_host, view.blk_last_host, gdev.max_doc_padded, dev
+    )[0]
+    target, sc, _valid = executor.decode_score_lanes(gdev, q)
+    shape = (b, gdev.max_doc_padded)
+    args = (cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc)
+    out_k = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
+    out_p = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
+    cuda_combine.combine_lanes(*args, *out_k)
+    cuda_combine.combine_lanes_plain(*args, *out_p)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k[1], out_p[1]):
+        raise AssertionError("combine kernel counts differ from the twin at a shard's shapes")
+    err = float((out_k[0] - out_p[0]).abs().max())
+    tol = 1e-5 * float(out_p[0].abs().max().clamp(min=1.0))
+    if err > tol:
+        raise AssertionError(f"combine kernel scores differ from the twin by {err} > {tol} on a shard")
+    out["combine_lanes"] = {
+        "entries": int(cb.e_item.numel()), "rows": b, "max_doc_padded": int(gdev.max_doc_padded),
+        "max_abs_err": err, "ms": cuda_ms(cuda_combine.combine_lanes, (*args, *out_k)),
+        "plain_ms": cuda_ms(cuda_combine.combine_lanes_plain, (*args, *out_p), reps=2, copies=1),
+    }
+    return out
+
+
+def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, card, dev):
+    """Phase 14: the sharded path (parallel/sharded.py; BASELINE.json
+    config 5's segment-sharded index, on one card) on both readers. Per
+    reader (``searchers``: the decoded and the packed one-reader searchers
+    of phases 3-9): a ShardedIndex over its reader on make_mesh(4, 1) (one
+    card: cuda:0 four times; more cards: one shard a card, up to 4), whose
+    one segment _split_hot_leaves splits by doc range into 4 shards, each
+    a combined view of its own (the packed one built with
+    RUCENE_DECODED=0); then the bench mix (512 queries, batch 256, k=100),
+    the rows of sharded_queries and the 32 head-band rows ``dense_q``
+    through ShardedSearcher.search_batch, timed passes of the mix, and a
+    profiled pass. Counts are set to 0 just before the index is built and
+    read after the last batch.
+
+    Gates (each raises): every TopDocs of the mix equals the one-reader
+    answers of phases 4-8 (``mix_answers``) and every other row the
+    one-reader searcher's, under tests/torch_hitcheck.py (rows of at most
+    two scoring clauses); 8 mix rows and 12 sharded rows equal the CPU run;
+    the route counters as planned (the mix's 448 term rows on route.mesh
+    and 64 phrase rows on route.mesh_phrase a pass, the sharded rows'
+    32 / 16 / 8); K1 launched once a shard by the decoded index's build
+    and never in its serving, K2 never on the decoded index and in the
+    packed one's serving, K3 on both; on the packed index no plain decode
+    twin runs. Then shard_kernel_replay holds the three kernels at a
+    shard's shapes. Returns the phase's figures and launches."""
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.parallel.sharded import ShardedIndex, ShardedSearcher, make_mesh
+    from rucene_tpu_torch.util.metrics import METRICS
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
+
+    n_cards = torch.cuda.device_count()
+    devices = [torch.device("cuda", i % n_cards) if n_cards > 1 else dev for i in range(SHARDS)]
+    rows, planned = graft
+    n_phrase = sum(type(q).__name__ == "PhraseQuery" for q in mix)
+    figures: dict = {"shards": SHARDS, "devices": [str(d) for d in devices]}
+    launches = {"decode_blocks": 0, "decode_score_blocks": 0, "combine_lanes": 0}
+    cpu_idx = list(range(0, len(mix), len(mix) // 8))[:8]
+    cpu_mix = cpu_searcher.search_batch([mix[i] for i in cpu_idx], k=K)
+    row_idx = [0, 1, 2, 3, 16, 17, 24, 28, 32, 40, 48, 54]  # every kind but the span fallback
+    cpu_rows = cpu_searcher.search_batch([rows[i] for i in row_idx], k=K)
+
+    def delta(before):
+        return counter_delta(METRICS.snapshot()["counters"], before)
+
+    for kind, searcher in searchers.items():
+        one_rows = searcher.search_batch(rows, k=K)
+        one_dense = searcher.search_batch(dense_q, k=K)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prev = os.environ.get("RUCENE_DECODED")
+        refuse = plain_decode_refused if kind == "packed" else contextlib.nullcontext
+        METRICS.reset()  # the phase's counts, for this reader
+        with refuse():
+            if kind == "packed":
+                os.environ["RUCENE_DECODED"] = "0"
+            try:
+                t = time.perf_counter()
+                index = ShardedIndex(make_mesh(SHARDS, 1, devices=devices), searcher.reader)
+                torch.cuda.synchronize()
+                build_s = time.perf_counter() - t
+            finally:
+                if prev is None:
+                    os.environ.pop("RUCENE_DECODED", None)
+                else:
+                    os.environ["RUCENE_DECODED"] = prev
+            k1_build = METRICS.snapshot()["counters"].get(cuda_decode.LAUNCH_COUNTER, 0)
+            ss = ShardedSearcher(index, searcher.similarity)
+            for i in range(0, len(mix), BATCH):  # warm pass
+                ss.search_batch(mix[i:i + BATCH], k=K)
+            before = METRICS.snapshot()["counters"]
+            qps, got = serve_sharded_sync(ss, mix)
+            mix_routes = delta(before)
+            before = METRICS.snapshot()["counters"]
+            got_rows = ss.search_batch(rows, k=K)
+            row_routes = delta(before)
+            before = METRICS.snapshot()["counters"]
+            got_dense = ss.search_batch(dense_q, k=K)
+            dense_routes = delta(before)
+            torch.cuda.synchronize()
+        counters = METRICS.snapshot()["counters"]  # the path ends here
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = {
+            "decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0),
+            "decode_score_blocks": counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0),
+            "combine_lanes": counters.get(cuda_combine.LAUNCH_COUNTER, 0),
+        }
+        for name in launches:
+            launches[name] += moved[name]
+        passes = mix_routes.get("route.mesh_phrase", 0) // max(n_phrase, 1)
+        route_of = lambda c: {r: c.get(r, 0) for r in planned}  # noqa: E731
+        want_mix = {"route.mesh": (len(mix) - n_phrase) * passes,
+                    "route.mesh_phrase": n_phrase * passes, "route.mesh_fallback": 0}
+        if passes < 2 or route_of(mix_routes) != want_mix:
+            raise AssertionError(f"{kind} sharded mix routes {route_of(mix_routes)} != {want_mix}")
+        if route_of(row_routes) != planned:
+            raise AssertionError(f"{kind} sharded rows' routes {route_of(row_routes)} != {planned}")
+        if dense_routes.get("route.mesh", 0) != len(dense_q):
+            raise AssertionError(f"{kind} head-band rows' routes {route_of(dense_routes)}")
+        if kind == "decoded":
+            if k1_build != SHARDS or moved["decode_blocks"] != SHARDS:
+                raise AssertionError(f"decoded shards: K1 {k1_build} at the build, "
+                                     f"{moved['decode_blocks']} in all, not once a shard")
+            if moved["decode_score_blocks"]:
+                raise AssertionError("K2 launched on the decoded shards")
+        elif k1_build or moved["decode_score_blocks"] <= 0:
+            raise AssertionError(f"packed shards: K1 at the build {k1_build}, K2 "
+                                 f"{moved['decode_score_blocks']}")
+        if moved["combine_lanes"] <= 0:
+            raise AssertionError(f"K3 never launched on the {kind} shards")
+        for name, g_all, w_all in (("mix", got, mix_answers[kind]), ("sharded rows", got_rows, one_rows),
+                                   ("head-band rows", got_dense, one_dense)):
+            for i, (g, w) in enumerate(zip(g_all, w_all)):
+                try:
+                    assert_topdocs_strict(g, w)
+                except AssertionError as e:
+                    raise AssertionError(f"{kind} sharded {name} row {i}: {e}") from None
+        for i, w in zip(cpu_idx, cpu_mix):
+            assert_topdocs_strict(got[i], w)
+        for i, w in zip(row_idx, cpu_rows):
+            assert_topdocs_strict(got_rows[i], w)
+
+        def one_pass():
+            for i in range(0, len(mix), BATCH):
+                ss.search_batch(mix[i:i + BATCH], k=K)
+
+        with refuse():
+            ms, busy, top = profile_fn(one_pass, passes=2, top=8)
+        figures[kind] = {
+            "qps": qps, "build_s": build_s, "shard_build_s": index.build_s,
+            "shard_docs": [sum(lf.max_doc for lf in g) for g in index.groups],
+            "shard_blocks": [v.n_blocks for v in index.views], "kernel_ms_busy": [ms, busy],
+            "top_kernels": top, "peak_gib": peak, "launches": moved,
+            "routes": {r: counters.get(r, 0) for r in ("route.mesh", "route.mesh_phrase",
+                                                        "route.mesh_fallback")},
+        }
+        log(f"phase 14, {kind}: ShardedIndex over {SHARDS} shards on {', '.join(map(str, devices))} "
+            f"built in {build_s:.2f}s (a shard: {', '.join(f'{s:.2f}' for s in index.build_s)}s; "
+            f"{figures[kind]['shard_docs']} docs, {figures[kind]['shard_blocks']} blocks); mix "
+            f"{qps:.1f} QPS ({len(mix)} queries, batch {BATCH}, k={K}) on {card}; kernels "
+            f"{ms:.1f} ms a pass, busy {busy:.1%}; peak {peak:.2f} GiB; launches {moved}; routes "
+            f"{figures[kind]['routes']}; every row equals the one-reader answers, 20 the CPU run; "
+            "top kernels (ms a pass): " + "; ".join(f"{n} {v:.2f}" for n, v in top))
+        figures[f"{kind}_replay"] = shard_kernel_replay(index, searcher, dense_q, dev)
+        del index, ss, got, got_rows, got_dense
+    log("phase 14 kernels at a shard's shapes: " + json.dumps(
+        {k: figures[k] for k in ("decoded_replay", "packed_replay")}))
+    return figures, launches
+
+
 # --- phase 12: NRT on the card (bench.py:519-640 main_nrt, its defaults) -----
 
 NRT_BASE = 200_000  # base docs through the writer
@@ -1287,6 +1611,7 @@ NRT_BATCH = 128
 NRT_REFRESH_S = 0.5
 NRT_RATE = 2000  # ingest docs a second
 NRT_CHUNK = 250  # docs an add_documents call, beside one marker doc
+NRT_SEGMENT_DOCS = 25_000  # the writer's max_buffered_docs
 NRT_COMMIT_EVERY = 2000  # ingested docs between two commits
 NRT_WARM = 2000  # docs of the warm refresh
 NRT_DEAD_MARKERS = 64
@@ -1389,12 +1714,17 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
     answer the 16 rows as the in-memory base reader did, bit for bit;
     tools/check_index finds the index clean, and a copy with one byte of
     a segment file flipped raises CorruptIndexError (``disk=False`` skips
-    this stage).
+    this stage); then the base docs go to a second FSDirectory in 8
+    add_documents calls of 25,000 (8 flush segments), and the
+    multi-process stage (serve_multi_process) opens it in partial mode from
+    spawned processes over NCCL.
+    Between the read-back and the deletes, serve_combined serves the
+    reader of the window's end (55-60 leaves) through its combined view.
 
     Returns the phase's figures (QPS, ingest rate, refreshes and their
     times, batch latencies, leaves, merges, device builds, peak memory,
     plane bytes held for segments no reader serves, kernel launches, the
-    replay's figures)."""
+    replay's figures, the combined view's and the multi-process stage's)."""
     import gc
     import shutil
     import tempfile
@@ -1426,6 +1756,7 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
     t = time.perf_counter()
     texts, vocab, probs = build_corpus(n_base + NRT_EXTRA)
     queries = build_queries(NRT_QUERIES, vocab, probs, phrase_texts=texts[:5000])
+    no_phrase = build_queries(NRT_QUERIES, vocab, probs)
     sample_idx = [i for kind in range(8) for i in (kind, kind + 8 * (NRT_QUERIES // 8 - 1))]
     sample = [queries[i] for i in sample_idx]
     log(f"NRT corpus of {len(texts)} docs and {len(queries)} queries in {time.perf_counter() - t:.1f}s")
@@ -1440,7 +1771,7 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
 
     def writer_on(directory):
         return IndexWriter(directory, IndexWriterConfig(
-            max_buffered_docs=25_000, merge_policy=TieredMergePolicy(segs_per_tier=64),
+            max_buffered_docs=NRT_SEGMENT_DOCS, merge_policy=TieredMergePolicy(segs_per_tier=64),
             merge_on_commit=False,
         ))
 
@@ -1594,6 +1925,7 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
         raise AssertionError(f"{builds} device builds for {len(served)} segments served")
     log(f"NRT: {n_markers} markers found once each in {len(s.reader.leaves)} leaves; "
         f"{builds} device builds for {len(served)} segments served; route.host 0")
+    combined = serve_combined(s, queries, no_phrase, dev)
 
     # deletes reach every route; a delete refresh builds nothing
     step = max(1, n_markers // NRT_DEAD_MARKERS)
@@ -1683,7 +2015,7 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
         "device_builds": window_builds + merge_builds, "peak_gib": peak_gib,
         "dead_plane_bytes": dead_plane_bytes, "launches": launches, "replay": replay,
         "markers": n_markers, "deleted_docs": deleted, "index_s": index_s, "merge_s": merge_s,
-        "decoded": os.environ.get("RUCENE_DECODED", "auto"),
+        "decoded": os.environ.get("RUCENE_DECODED", "auto"), "combined": combined,
     }
     log(f"NRT kernel launches in the phase: {launches}; peak {peak_gib:.2f} GiB")
     # fresh segments are built through the decode kernel, or served packed
@@ -1729,6 +2061,22 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
             pass
         else:
             raise AssertionError(f"a flipped byte in {seg} went unnoticed")
+        # the multi-process stage's index: the base docs in one flush
+        # segment a NRT_SEGMENT_DOCS, as the writer cuts them under load
+        mp_dir = FSDirectory(os.path.join(tmp, "sharded"))
+        mw = writer_on(mp_dir)
+        for lo in range(0, n_base, NRT_SEGMENT_DOCS):
+            mw.add_documents(docs_of(lo, min(lo + NRT_SEGMENT_DOCS, n_base)))
+        mw.commit()
+        mw.close()
+        mp_reader = IndexSearcher(open_directory_reader(mp_dir), device=dev)
+        one_reader = []
+        for i in range(0, NRT_QUERIES, NRT_BATCH):
+            one_reader.extend(mp_reader.search_batch(queries[i:i + NRT_BATCH], k=K))
+        mp_segments = len(mp_reader.reader.leaves)
+        del mp_reader
+        figures["multi_process"] = serve_multi_process(mp_dir.path, queries, one_reader, dev)
+        figures["multi_process"]["segments"] = mp_segments
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"NRT on disk: the port's writer committed {n_base} docs to an FSDirectory in "
@@ -1737,6 +2085,246 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
         f"a flipped byte in {seg} raised CorruptIndexError")
     figures["check_index_s"] = check_s
     return figures
+
+
+def serve_combined(searcher, queries, no_phrase, dev) -> dict:
+    """Phase 12's combined-view stage, over the NRT reader at the end of the
+    serving window (55-60 leaves): IndexSearcher(reader,
+    combine_segments=True) builds the reader's combined view (timed, with
+    the decode kernel's launch) and serves the phase's 256 queries and the
+    same mix without phrase rows in batches of 128, in turns with the
+    per-leaf ``searcher`` (per-leaf, combined, combined, per-leaf a batch).
+    Gates: every row equals the per-leaf answer (tests/torch_hitcheck.py;
+    rows of at most two scoring clauses), one view built. Returns the view's
+    build seconds, leaves, and the ms a batch of both."""
+    from rucene_tpu_torch import IndexSearcher
+    from rucene_tpu_torch.util.metrics import METRICS
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
+
+    before = METRICS.snapshot()["counters"]
+    comb = IndexSearcher(searcher.reader, searcher.similarity, device=dev, combine_segments=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    view = comb._combined_view()
+    torch.cuda.synchronize()
+    view_s = time.perf_counter() - t
+    out = {"leaves": len(searcher.reader.leaves), "view_s": view_s, "view_blocks": view.n_blocks,
+           "decoded": view.device.docs_dec is not None}
+    for name, rows in (("mix", queries), ("no_phrase", no_phrase)):
+        batches = [rows[i:i + NRT_BATCH] for i in range(0, len(rows), NRT_BATCH)]
+        for b in batches:  # warm both
+            searcher.search_batch(b, k=K)
+            comb.search_batch(b, k=K)
+        ms = {"per_leaf": [], "combined": []}
+        for b in batches:
+            for which, s in (("per_leaf", searcher), ("combined", comb), ("combined", comb),
+                             ("per_leaf", searcher)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = s.search_batch(b, k=K)
+                torch.cuda.synchronize()
+                ms[which].append((time.perf_counter() - t) * 1e3)
+                if which == "per_leaf":
+                    want = got
+                else:
+                    comb_got = got
+            for i, (g, w) in enumerate(zip(comb_got, want)):
+                try:
+                    assert_topdocs_strict(g, w)
+                except AssertionError as e:
+                    raise AssertionError(f"combined view, {name} row {i}: {e}") from None
+        out[name] = {k: float(np.mean(v)) for k, v in ms.items()}
+    moved = counter_delta(METRICS.snapshot()["counters"], before)
+    if moved.get("reader.combined_builds", 0) != 1:
+        raise AssertionError(f"{moved.get('reader.combined_builds', 0)} combined views built")
+    out["decode_blocks"] = moved.get("kernel.decode_blocks", 0)
+    log(f"NRT combined view over {out['leaves']} leaves: built in {view_s:.3f}s "
+        f"({view.n_blocks} blocks, decoded {out['decoded']}, K1 {out['decode_blocks']}); ms a "
+        f"128-row batch, per-leaf / combined: mix {out['mix']['per_leaf']:.1f} / "
+        f"{out['mix']['combined']:.1f}, without phrases {out['no_phrase']['per_leaf']:.1f} / "
+        f"{out['no_phrase']['combined']:.1f}; every row equals the per-leaf answer")
+    return out
+
+
+def query_spec(q) -> list:
+    """A bench row as JSON: ["t", w], ["or", a, b], ["and", a, b] or ["p", a, b]."""
+    name = type(q).__name__
+    if name == "TermQuery":
+        return ["t", q.term.text]
+    if name == "PhraseQuery":
+        return ["p", *q.rewrite().phrases[0][1]]
+    rq = q.rewrite()
+    return ["and" if rq.n_required else "or", *(c.term.text for c in rq.clauses)]
+
+
+def query_from_spec(spec):
+    from rucene_tpu_torch import BooleanQuery, PhraseQuery, Term, TermQuery
+
+    kind, *words = spec
+    if kind == "t":
+        return TermQuery(Term("body", words[0]))
+    if kind == "p":
+        return PhraseQuery("body", words)
+    q = BooleanQuery()
+    for w in words:
+        (q.must if kind == "and" else q.should)(TermQuery(Term("body", w)))
+    return q
+
+
+def mp_worker(argv) -> int:
+    """One process of the multi-process stage (``chip_smoke.py --mp-worker
+    INIT WORLD RANK BACKEND INDEX_DIR QUERIES_JSON OUT``): joins the group
+    (NCCL on its card; gloo on the CPU for a rehearsal), opens the index in
+    partial mode on a pod mesh of SHARDS shards (SHARDS // WORLD on its
+    device), serves the queries in batches of NRT_BATCH (a warm pass, then
+    a timed one) and writes its answers and figures to OUT.RANK."""
+    from rucene_tpu_torch import FSDirectory
+    from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
+    from rucene_tpu_torch.parallel import multi_host
+    from rucene_tpu_torch.parallel.sharded import ShardedIndex, ShardedSearcher
+    from rucene_tpu_torch.util.metrics import METRICS
+
+    init, world, rank, backend, index_dir, queries_json, out = argv
+    world, rank = int(world), int(rank)
+    multi_host.initialize(init, world_size=world, rank=rank, backend=backend)
+    if backend == "nccl":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        cuda_build.kernels()
+    else:
+        dev = torch.device("cpu")
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    with open(queries_json) as f:
+        queries = [query_from_spec(s) for s in json.load(f)]
+    per = max(SHARDS // world, 1)
+    mesh = multi_host.make_pod_mesh(shards_per_host=per, devices=[dev] * per, partition="index")
+    METRICS.reset()
+    t = time.perf_counter()
+    index = ShardedIndex.from_directory(mesh, FSDirectory(index_dir))
+    sync()
+    load_s = time.perf_counter() - t
+    ss = ShardedSearcher(index)
+    for i in range(0, len(queries), NRT_BATCH):
+        ss.search_batch(queries[i:i + NRT_BATCH], k=K)
+    sync()
+    t = time.perf_counter()
+    got = []
+    for i in range(0, len(queries), NRT_BATCH):
+        got.extend(ss.search_batch(queries[i:i + NRT_BATCH], k=K))
+    sync()
+    qps = len(queries) / (time.perf_counter() - t)
+    counters = METRICS.snapshot()["counters"]
+    with open(f"{out}.{rank}", "w") as f:
+        json.dump({
+            "rank": rank, "world": world, "backend": torch.distributed.get_backend(),
+            "device": str(dev), "mesh": mesh.shape, "owned": sorted(index.owned),
+            "loaded_segments": len(index.leaves), "load_s": load_s, "qps": qps,
+            "launches": {"decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0),
+                         "decode_score_blocks": counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0),
+                         "combine_lanes": counters.get(cuda_combine.LAUNCH_COUNTER, 0)},
+            "routes": {r: counters.get(r, 0) for r in ("route.mesh", "route.mesh_phrase",
+                                                        "route.mesh_fallback")},
+            "hits": [[td.total_hits, [[int(d), float(s)] for d, s in td.score_docs]] for td in got],
+        }, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def serve_multi_process(index_dir: str, queries, one_reader, dev, backend: str = "nccl") -> dict:
+    """The multi-process stage: ShardedIndex.from_directory in partial
+    mode over phase 12's second on-disk index, behind multi_host.initialize with
+    NCCL, in a world of one spawned process a card (up to 4; a world of 1
+    on one card), each owning SHARDS // world shards (backend="gloo": two
+    CPU processes, a rehearsal without a card). Gates: every process
+    exits 0 within 600 s (a process past it is killed and fails the
+    stage); each answers every query as this process's one-process
+    partial-mode ShardedSearcher on the same directory, and as the
+    one-reader ``one_reader`` answers, under tests/torch_hitcheck.py; the
+    processes together load every segment once. Returns the world's
+    figures.""" 
+    import socket
+    import tempfile
+
+    from rucene_tpu_torch import FSDirectory
+    from rucene_tpu_torch.parallel.sharded import ShardedIndex, ShardedSearcher, make_mesh
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
+
+    world = min(torch.cuda.device_count(), SHARDS) if backend == "nccl" else 2
+    one = ShardedSearcher(ShardedIndex.from_directory(
+        make_mesh(SHARDS, 1, devices=[dev] * SHARDS), FSDirectory(index_dir)))
+    want = []
+    for i in range(0, len(queries), NRT_BATCH):
+        want.extend(one.search_batch(queries[i:i + NRT_BATCH], k=K))
+    for i, (g, w) in enumerate(zip(want, one_reader)):
+        assert_topdocs_strict(g, w)
+    del one
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="rtt_mp_")
+    qpath = os.path.join(tmp, "queries.json")
+    with open(qpath, "w") as f:
+        json.dump([query_spec(q) for q in queries], f)
+    out = os.path.join(tmp, "out")
+    t = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-worker", f"tcp://localhost:{port}",
+             str(world), str(r), backend, index_dir, qpath, out],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for r in range(world)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"multi-process rank {r} exited {p.returncode}:\n{logs[r][-4000:]}")
+    from rucene_tpu_torch.codec import files as segfiles
+
+    n_segments = len(segfiles.read_segments_file(FSDirectory(index_dir)).segments)
+    ranks = []
+    for r in range(world):
+        with open(f"{out}.{r}") as f:
+            res = json.load(f)
+        from rucene_tpu_torch.search.searcher import ScoreDoc, TopDocs
+
+        for i, ((n, sd), w) in enumerate(zip(res["hits"], want)):
+            g = TopDocs(n, [ScoreDoc(d, np.float32(s)) for d, s in sd])
+            try:
+                assert_topdocs_strict(g, w)
+            except AssertionError as e:
+                raise AssertionError(f"multi-process rank {r} row {i}: {e}") from None
+        res.pop("hits")
+        ranks.append(res)
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    if sum(r["loaded_segments"] for r in ranks) != n_segments:
+        raise AssertionError(f"the world loaded {[r['loaded_segments'] for r in ranks]} of "
+                             f"{n_segments} segments")
+    log(f"multi-process stage: a world of {world} over {backend} ({', '.join(r['device'] for r in ranks)}), "
+        f"partial mode on {ranks[0]['mesh']} shards; {len(queries)} queries equal the one-process "
+        f"sharded searcher's and the one-reader answers on every rank; "
+        + "; ".join(f"rank {r['rank']}: owned {r['owned']}, {r['loaded_segments']} segments "
+                    f"loaded in {r['load_s']:.2f}s, {r['qps']:.1f} QPS, launches {r['launches']}"
+                    for r in ranks)
+        + f"; {wall:.1f}s wall")
+    return {"world": world, "wall_s": wall, "ranks": ranks}
 
 
 def single_k2_call(searcher, batch):
@@ -1927,6 +2515,7 @@ def main() -> int:
     extras_q, head_extras_q = extras_queries(vocab, probs)
     filter_a, filter_b, host_q = filter_queries(texts[:5000], vocab, probs)  # phase 11's rows
     surface_q = surface_queries(texts[:5000], vocab, probs)  # phase 13's rows
+    sharded_q = sharded_queries(texts[:5000], vocab, probs)  # phase 14's rows
     packed = pack_corpus(texts)
     del texts
     from rucene_tpu_torch.util.packing import EF_TAG
@@ -2166,6 +2755,12 @@ def main() -> int:
     p13 = serve_query_surface(
         {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, surface_q, mix_pairs, card,
     )
+
+    # 14. sharded search on both readers: the one segment split over 4 shards
+    p14, p14_launches = serve_sharded(
+        {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, queries,
+        {"decoded": mix_results, "packed": packed_results}, dense_q, sharded_q, card, dev,
+    )
     del cpu_reader, cpu_searcher
 
     # 12. NRT on the card, after releasing phases 1-11's device state
@@ -2177,14 +2772,19 @@ def main() -> int:
     DEVICE_PLANE_CACHE.clear()
     p12 = serve_nrt(dev, card)
     nrt_launches = p12.pop("launches")
-    k3_err = max(k3_err, p12["replay"]["combine_lanes"]["max_abs_err"])
+    for r in p12["multi_process"]["ranks"]:  # the spawned processes' launches
+        for name, n in r["launches"].items():
+            nrt_launches[name] += n
+    k3_err = max(k3_err, p12["replay"]["combine_lanes"]["max_abs_err"],
+                 *(p14[f"{kind}_replay"]["combine_lanes"]["max_abs_err"]
+                   for kind in ("decoded", "packed")))
 
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
          "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"]
          + p11["launches"]["decode_blocks"] + p13["launches"]["decode_blocks"]
-         + nrt_launches["decode_blocks"],
+         + nrt_launches["decode_blocks"] + p14_launches["decode_blocks"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
@@ -2192,14 +2792,15 @@ def main() -> int:
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
          "launches": k2_launches + p10["launches"]["decode_score_blocks"]
          + p11["launches"]["decode_score_blocks"] + p13["launches"]["decode_score_blocks"]
-         + nrt_launches["decode_score_blocks"],
+         + nrt_launches["decode_score_blocks"] + p14_launches["decode_score_blocks"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
          "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"]
-         + p13["launches"]["combine_lanes"] + nrt_launches["combine_lanes"],
+         + p13["launches"]["combine_lanes"] + nrt_launches["combine_lanes"]
+         + p14_launches["combine_lanes"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
@@ -2219,7 +2820,8 @@ def main() -> int:
         "filter_planes": p11["planes"], "host_rows": len(host_q),
         "host_s": [p11["decoded_host_s"], p11["packed_host_s"]],
         "query_surface": {"decoded": p13["decoded"], "packed": p13["packed"]},
-        "nrt": p12, "nrt_launches": nrt_launches}))
+        "nrt": p12, "nrt_launches": nrt_launches, "sharded": p14,
+        "sharded_launches": p14_launches}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2229,4 +2831,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:  # one process of phase 12's multi-process stage
+        sys.exit(mp_worker(sys.argv[2:]))
     sys.exit(main())

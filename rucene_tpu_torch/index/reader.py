@@ -274,7 +274,16 @@ class SegmentSnapshot:
         i64[df], positions i64[sum(freqs)] or None), plus the
         occurrence-aligned (starts, ends) offsets and the payload list when
         either is asked for; None for an absent term. Occurrence j of doc i
-        sits at positions[cumfreq[i] + j]."""
+        sits at positions[cumfreq[i] + j]. A doc-range split view
+        (codec/split.py) serves docs and freqs only: its leading partial
+        block breaks the occurrence alignment, so the rest raises."""
+        if (with_positions or with_offsets or with_payloads) and getattr(
+            self.packed, "is_split_view", False
+        ):
+            raise ValueError(
+                "occurrence-aligned postings are unavailable on a doc-range "
+                "split view (codec/split.py); use the original segment"
+            )
         rec = self.term_record(field, text)
         if rec is None:
             return None

@@ -9,6 +9,11 @@ Port changes (held against rucene_tpu/native/__init__.py by
 tests/test_torch_host.py): it builds the same native/*.cpp sources, but
 into a gitignored directory of its own.
 - _BUILD_DIR: rucene_tpu_torch/native/build instead of native/build.
+- _build_and_load: g++ writes a file named for its process, which
+  os.replace then moves into place. The directory is not committed, so
+  every test worker of a fresh checkout builds at once; with one shared
+  temporary name a worker could find its output moved or rewritten under
+  it and run without the library.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ def _build_and_load():
     so_path = os.path.join(_BUILD_DIR, f"rucene_native_{digest}.so")
     if not os.path.exists(so_path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = so_path + ".tmp"
+        tmp = f"{so_path}.{os.getpid()}.tmp"
         try:
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",

@@ -20,9 +20,14 @@ plain terms, executor.execute_synonym) and the rescorer's probe
 (``_probe_device``: one rewritten row read at given docs,
 executor.execute_probe, through the combine kernel).
 
-Left out of the reference: ``_view_filters`` (the combined multi-segment
-view, ROADMAP.md §1 item 10) and the pow2 pads of the stack, the synonym
-batch and the probe list.
+view_filters is the reference's ``_view_filters``: the planes of a
+combined view (index/combined.py), each leaf's doc set at its view doc
+base, cached on the view itself (so on its device) under the filter's key
+and the leaves' doc-values overlays; a module function, since the sharded
+searcher (parallel/sharded.py) builds them per shard too.
+
+Left out of the reference: the pow2 pads of the stack, the synonym batch
+and the probe list.
 """
 
 from __future__ import annotations
@@ -42,6 +47,46 @@ from rucene_tpu_torch.search.flat_tables import (
     make_flat_batch,
 )
 from rucene_tpu_torch.search.query import Occur
+
+
+def view_filters(view, leaves, keys, idx, enc, boost) -> FilterPlanes:
+    """FilterPlanes in a combined view's doc space: each leaf's doc set of
+    a filter lands at the leaf's view doc base. The planes and their stack
+    are cached on the view, keyed by the filters and by the count of each
+    leaf's doc-values overlays (an update that an exists set reads makes a
+    new plane, as search/cache.py keys it)."""
+    d = view.device.device
+    mdp = view.device.max_doc_padded
+    overlays = tuple(
+        sum(len(m) for m in lf.dv_updates.values()) + sum(len(m) for m in lf.bdv_updates.values())
+        for lf in leaves
+    )
+
+    def plane_of(rcl):
+        key = ("plane", rcl.cache_key, overlays)
+        got = view.planes.get(key)
+        if got is None:
+            m = np.zeros(mdp, bool)
+            for li, leaf in enumerate(leaves):
+                docs = DEFAULT_QUERY_CACHE.get_or_compute(
+                    leaf, rcl.cache_key, lambda leaf=leaf: rcl.doc_set(leaf)
+                )
+                m[int(view.doc_bases[li]) + np.asarray(docs, np.int64)] = True
+            if len(view.planes) >= 512:  # bounded: start over
+                view.planes.clear()
+            got = view.planes[key] = torch.from_numpy(m).to(d)
+        return got
+
+    skey = ("stack", tuple(r.cache_key for r in keys), overlays)
+    planes = view.planes.get(skey)
+    if planes is None:
+        planes = view.planes[skey] = torch.stack([plane_of(r) for r in keys])
+    return FilterPlanes(
+        planes=planes,
+        idx=torch.from_numpy(idx).to(d),
+        enc=torch.from_numpy(enc).to(d),
+        boost=torch.from_numpy(boost).to(d),
+    )
 
 
 class FilterPathMixin:

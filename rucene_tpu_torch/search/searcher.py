@@ -72,8 +72,14 @@ once per searcher.
 term path and the mixed path; leaves not reached are skipped and
 ``timed_out`` is set, so results are partial, as the reference's are.
 
-Left out of the reference: WAND pruning, the combined multi-segment view,
-and the A/B knobs RUCENE_PLANE_TERMS,
+``IndexSearcher(reader, combine_segments=True)`` serves a batch's device
+rows over several leaves with one executor call on the reader's combined
+view (index/combined.py; _search_device_combined), as the reference does:
+not a timed batch (one call cannot be interrupted between leaves, so it
+keeps the per-leaf loop), and not the pair or tf-plane routes, which stay
+per leaf, as do the phrase, mixed, synonym, span and host paths.
+
+Left out of the reference: WAND pruning and the A/B knobs RUCENE_PLANE_TERMS,
 RUCENE_PLANES_ROUTE_DIV, RUCENE_PAIR_PROBE and RUCENE_PAIR_TOPK (the pair
 route's probe variant is picked from the batch: one field for both
 clauses of every row, or not).
@@ -118,7 +124,7 @@ from rucene_tpu_torch.search.flat_tables import (
     prune_conjunctions,
 )
 from rucene_tpu_torch.search import host_engine
-from rucene_tpu_torch.search.filter_path import FilterPathMixin
+from rucene_tpu_torch.search.filter_path import FilterPathMixin, view_filters
 from rucene_tpu_torch.search.pair_path import build_pair_work, pair2_eligible
 from rucene_tpu_torch.search.phrase_path import PhrasePathMixin
 from rucene_tpu_torch.search.plane_path import plane_row_chunk, plane_structural
@@ -196,12 +202,18 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         reader: IndexReader,
         similarity: BM25Similarity | None = None,
         device="cuda",
+        combine_segments: bool = False,
     ):
         """device: where the reader's segments and every batch live; the
-        reader is moved there (IndexReader.to)."""
+        reader is moved there (IndexReader.to). combine_segments=True
+        searches all leaves with one executor call over their combined
+        view (index/combined.py): the win case is an NRT index of many
+        small segments."""
         self.reader = reader.to(device)
         self.device = torch.device(device)
         self.similarity = similarity or BM25Similarity()
+        self.combine_segments = combine_segments
+        self._combined = None
         self._stats: dict[str, CollectionStats] = {}
         self._plan_cache: dict[int, QueryPlan] = {}
         self._deadline: float | None = None  # time.monotonic() budget of the batch
@@ -313,6 +325,13 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             return out  # type: ignore[return-value]
 
         return collect
+
+    def _combined_view(self):
+        if self._combined is None:
+            from rucene_tpu_torch.index.combined import cached_combined_view
+
+            self._combined = cached_combined_view(self.reader.leaves, self.device)
+        return self._combined
 
     def _past_deadline(self) -> bool:
         if self._deadline is not None and time.monotonic() > self._deadline:
@@ -489,6 +508,15 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             METRICS.incr("route.single" if single else "route.flat", b)
         extras, with_dismax = (None, False) if plain else _row_extras(rqs, self.device)
         boosts_t = _put(boosts, self.device, np.float32) if match_all_rows.any() else None
+        if (
+            self.combine_segments and len(self.reader.leaves) > 1
+            and self._deadline is None and not pair2 and not plane
+        ):
+            return self._search_device_combined(
+                rqs, k, stats, weight, occur, n_required, min_should, match_all_rows,
+                boosts_t, t, pure, single, filter_tables, strategy, n_required_terms,
+                extras, with_dismax,
+            )
         pending = []  # (doc_base, result, match-all result or None)
         for leaf in self.reader.leaves:
             if self._past_deadline():
@@ -533,8 +561,8 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             else:
                 filters = self._leaf_filters(leaf, *filter_tables) if filter_tables else None
                 res = self._run_work(
-                    leaf, work[:6], cache, n_required, min_should, k, pure, extras, with_dismax,
-                    filters=filters, strategy=strategy,
+                    leaf.device, _blk_ranges(leaf), work[:6], cache, n_required, min_should, k,
+                    pure, extras, with_dismax, filters=filters, strategy=strategy,
                 )
             ma = execute_match_all(leaf.device, boosts_t, k) if boosts_t is not None else None
             pending.append((leaf.doc_base, res, ma))
@@ -664,7 +692,9 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         work2 = build_flat_work(
             block_start, np.where(bad[:, None], block_count, 0), weight, field_id, occur
         )
-        res2 = self._run_work(leaf, work2[:6], cache, n_required, min_should, k, False)
+        res2 = self._run_work(
+            dev, _blk_ranges(leaf), work2[:6], cache, n_required, min_should, k, False
+        )
         bad_t = _put(bad, d, np.bool_)
         return tuple(
             torch.where(bad_t[:, None] if x.dim() == 2 else bad_t, y, x)
@@ -699,11 +729,13 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             max(int(bc.max()), 1),
         )
 
-    def _run_work(self, leaf, arrays, cache, n_required, min_should, k, pure,
+    @staticmethod
+    def _run_work(dev, blk_ranges, arrays, cache, n_required, min_should, k, pure,
                   extras=None, with_dismax=False, filters=None, strategy=None):
-        """One executor call for a leaf's work list. strategy: the executor
-        branch ("auto", "dense" or "candidate"; None reads RUCENE_STRATEGY)."""
-        dev = leaf.device
+        """One executor call for a work list over ``dev`` (a leaf's device
+        form, or a combined view's), whose blocks span ``blk_ranges`` (host
+        first and last docs a block). strategy: the executor branch
+        ("auto", "dense" or "candidate"; None reads RUCENE_STRATEGY)."""
         if strategy is None:
             strategy = os.environ.get("RUCENE_STRATEGY", "auto")
         n_items = len(arrays[0])
@@ -712,14 +744,82 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         combine = None
         if dense:
             combine = build_combine_batch(
-                arrays, len(n_required), leaf.packed.blk_first_doc,
-                leaf.packed.blk_last_doc, dev.max_doc_padded, dev.device,
+                arrays, len(n_required), *blk_ranges, dev.max_doc_padded, dev.device
             )
         q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
         return execute_flat_impl(
             dev, q, k, pure_disjunction=pure, combine=combine, extras=extras,
             with_dismax=with_dismax, filters=filters,
         )
+
+    def _search_device_combined(
+        self, rqs, k, stats, weight, occur, n_required, min_should, match_all_rows,
+        boosts_t, t, pure, single, filter_tables, strategy, n_required_terms, extras,
+        with_dismax,
+    ):
+        """Every leaf in ONE executor call over the combined view: each
+        (row, clause) takes one block range per leaf (build_combined_tables);
+        conjunction pruning groups a clause's blocks across leaves. Returns
+        finish() -> TopDocs."""
+        from rucene_tpu_torch.index.combined import build_combined_tables
+
+        leaves = self.reader.leaves
+        view = self._combined_view()
+        sim = self.similarity
+        b = len(rqs)
+        cache = np.zeros((max(len(view.field_gid), 1), 256), np.float32)
+        for name, g in view.field_gid.items():
+            has_norms = any(name in leaf.packed.norms for leaf in leaves)
+            cache[g] = sim.cache_row(stats.get(name) if has_norms else None)
+        block_start, block_count, field_id = build_combined_tables(view, leaves, rqs, b, t)
+        length = view.n_leaves
+        work = build_flat_work(
+            block_start, block_count, np.repeat(weight, length, axis=1), field_id,
+            np.repeat(occur, length, axis=1),
+        )
+        # tslot -> clause id: a clause's blocks in every leaf intersect as one
+        work = work[:7] + (work[7] // length,)
+        blk_ranges = (view.blk_first_host, view.blk_last_host)
+        work, _ = prune_conjunctions(work, n_required_terms, blk_ranges)
+        dev = view.device
+        if single:
+            # one clause a row; its items span every leaf, ascending in the
+            # view's doc space, so the single-term lane path applies
+            lane_cnt = np.zeros(b, np.int32)
+            for i, rq in enumerate(rqs):
+                c = rq.clauses[0]
+                for leaf in leaves:
+                    rec = leaf.term_record(c.term.field, c.term.text)
+                    if rec is not None:
+                        lane_cnt[i] += rec.doc_freq
+            res = self._run_single_view(dev, work, lane_cnt, cache, n_required, min_should, k)
+        else:
+            filters = (
+                view_filters(view, leaves, *filter_tables) if filter_tables else None
+            )
+            res = self._run_work(
+                dev, blk_ranges, work[:6], cache, n_required, min_should, k, pure, extras,
+                with_dismax, filters=filters, strategy=strategy,
+            )
+        ma = execute_match_all(dev, boosts_t, k) if boosts_t is not None else None
+
+        def finish() -> list[TopDocs]:
+            s, d, h = (x.cpu().numpy() for x in res)
+            if ma is not None:
+                ms, mdoc, mh = (x.cpu().numpy() for x in ma)
+                s = np.where(match_all_rows[:, None], ms, s)
+                d = np.where(match_all_rows[:, None], mdoc, d)
+                h = np.where(match_all_rows, mh, h)
+            out = []
+            for i in range(b):
+                keep = s[i] > -np.inf
+                out.append(TopDocs(
+                    total_hits=int(h[i]), docs=view.map_docs(d[i][keep], leaves),
+                    scores=s[i][keep],
+                ))
+            return out
+
+        return finish
 
     # --- explain (Weight::explain, term_query.rs:183-215) ---
     def explain(self, query: Query, doc: int):
@@ -790,6 +890,10 @@ def _row_extras(rqs, device) -> tuple[RowExtras, bool]:
         const_val=_put(const_val, device, np.float32), demote=_put(demote, device, np.float32),
     )
     return extras, bool((dm_tie >= 0).any())
+
+
+def _blk_ranges(leaf) -> tuple[np.ndarray, np.ndarray]:
+    return leaf.packed.blk_first_doc, leaf.packed.blk_last_doc
 
 
 def _put(a, device, dtype=np.int32) -> torch.Tensor:

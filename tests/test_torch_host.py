@@ -5,7 +5,9 @@ the reference's modules.
     rucene_tpu_torch, build a 200-doc index and search it on the CPU, a
     filter row and a host row among the rows, then write the same docs
     with IndexWriter into a temporary FSDirectory, reopen them with
-    open_directory_reader and serve two rows, and serve a parsed query
+    open_directory_reader and serve two rows (and again through the
+    combined view), serve three rows on a two-shard mesh
+    (rucene_tpu_torch.parallel) and lay out a pod mesh, and serve a parsed query
     string, a SpanOrQuery, an unordered SpanNearQuery, a sorted row and a
     collapse row from an index with doc values: the card's host has no
     jax.
@@ -37,6 +39,7 @@ COPIED = [
     "codec/dv_codec.py",
     "codec/files.py",
     "codec/postings.py",
+    "codec/split.py",
     "doc/__init__.py",
     "doc/document.py",
     "doc/field.py",
@@ -134,6 +137,15 @@ with tempfile.TemporaryDirectory() as tmp:
     on_disk = [disk.search(q, 10) for q in (T.TermQuery(T.Term("body", "gamma")), q)]
     in_memory = [searcher.search(q, 10) for q in (T.TermQuery(T.Term("body", "gamma")), q)]
     leaves = len(disk.reader.leaves)
+    comb = T.IndexSearcher(T.open_directory_reader(T.FSDirectory(tmp)), device="cpu",
+                           combine_segments=True)
+    combined = [comb.search(q, 10) for q in (T.TermQuery(T.Term("body", "gamma")), q)]
+from rucene_tpu_torch.parallel import multi_host, sharded
+
+mesh = sharded.make_mesh(2, 1, devices=["cpu", "cpu"])
+on_mesh = sharded.ShardedSearcher(sharded.ShardedIndex(mesh, searcher.reader)).search_batch(
+    [T.TermQuery(T.Term("body", "gamma")), q, T.PhraseQuery("body", ["alpha", "beta"])], k=10
+)
 from rucene_tpu_torch.search.sort_field import SortFieldType
 from rucene_tpu_torch.search.spans import SpanNearQuery, SpanOrQuery, SpanTermQuery
 
@@ -160,6 +172,9 @@ print(json.dumps({
     "disk": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in on_disk],
     "memory": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in in_memory],
     "leaves": leaves,
+    "combined": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in combined],
+    "mesh": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in on_mesh],
+    "pod": multi_host.make_pod_mesh(devices=["cpu"]).shape,
     "surface": [[h.total_hits, len(h.score_docs)] for h in surface],
     "sorted": [srt.total_hits, [fd.fields[0] for fd in srt.field_docs]],
     "collapse": [col.total_hits, len(col.score_docs)],
@@ -186,6 +201,11 @@ def test_port_runs_without_jax():
     # (four segments) and opened with open_directory_reader
     assert out["leaves"] == 4
     assert out["disk"] == out["memory"] and out["disk"][0][0] == n1
+    # the combined view over the four segments, and a two-shard mesh
+    # (the one segment split in two) over the in-memory reader
+    assert out["combined"] == out["disk"]
+    assert [m[0] for m in out["mesh"]] == [n1, n2, n3]
+    assert out["mesh"][0] == out["hits"][0] and out["pod"] == {"shard": 1, "dp": 1}
     # a parsed query string, a synonym row, an unordered span row, a sorted
     # row and a collapse row
     assert all(n > 0 and m == min(10, n) for n, m in out["surface"])
