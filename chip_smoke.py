@@ -4,12 +4,13 @@
 
 Builds the CUDA kernels and the native library from this checkout, then:
   1. prints the toolchain and the card (name, power limit);
-  2. builds the bench's Zipf corpus (bench.py's generator and seed,
-     reimplemented here so nothing imports rucene_tpu or jax), its query
-     mix with phrase rows (bigrams from the first 5,000 docs, as bench.py
-     draws them) and the same mix without them, packs the corpus (each doc
-     also with an IntPoint ``ts`` and, one in 4, a StringField ``tag``,
-     pack_corpus) and opens it with the port's IndexReader;
+  2. builds the bench's Zipf corpus (bench.py's generator and seed, from
+     rucene_tpu_torch/drivers/workload.py, so nothing imports rucene_tpu or
+     jax), its query mix with phrase rows (bigrams from the first 5,000
+     docs, as bench.py draws them) and the same mix without them, packs
+     the corpus (each doc also with an IntPoint ``ts`` and, one in 4, a
+     StringField ``tag``: workload.pack_corpus with FIELDS_SEED) and opens
+     it with the port's IndexReader;
   3. builds the decoded residency through the decode kernel and holds it
      against the plain twin on the CPU, every block bit for bit; logs the
      dense tf planes the residency build scattered (count, bytes, df_min)
@@ -129,6 +130,16 @@ Builds the CUDA kernels and the native library from this checkout, then:
      docstring; the figures print under ``sharded``, its launches count in
      the kernels' rows, and shard_kernel_replay holds K1, K2 and K3 at a
      shard's shapes (K3's error in its row's max_abs_err).
+ 15. the port's entry points (serve_drivers, after phase 14, before phase
+     12; rucene_tpu_torch/drivers and examples): the bench's serving loop
+     (drivers.bench.serve_mix) over the whole mix on both readers, every
+     TopDocs equal to phase 4's and 8's; both examples as subprocesses on
+     the card, their lines equal to a --device cpu run; ``drivers.bench
+     --nrt`` at 20,000 base docs for 5 s; and a drivers.profile_bench
+     capture of two packed batches, whose trace holds the batch's host
+     spans as often as util/metrics timed them and K1, K2 and K3 by name.
+     Its figures print under ``drivers``, its in-process launches under
+     ``drivers_launches`` and in the kernels' rows.
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
@@ -140,7 +151,7 @@ extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc), and
 phase 11's filter_qps, filter_packed_qps, filter_kernel_ms_busy,
 filter_planes and host_rows, phase 13's figures under ``query_surface``,
 phase 14's under ``sharded`` with its launches under ``sharded_launches``,
-and phase 12's figures under ``nrt`` with its launches under
+phase 15's under ``drivers`` and ``drivers_launches``, and phase 12's figures under ``nrt`` with its launches under
 ``nrt_launches``), the card's name and power limit, and the device line.
 """
 
@@ -156,6 +167,16 @@ import time
 import numpy as np
 import torch
 
+from rucene_tpu_torch.drivers.bench import serve_mix
+from rucene_tpu_torch.drivers.profile_bench import profile_fn
+from rucene_tpu_torch.drivers.workload import (
+    YEAR_S,
+    build_corpus,
+    build_queries,
+    pack_corpus,
+    sample_bigrams,
+)
+
 K = 100
 BATCH = 256
 N_QUERIES = 512
@@ -163,6 +184,7 @@ K1_SOURCE = "rucene_tpu_torch/csrc/decode.cu"
 K2_SOURCE = K1_SOURCE
 K3_SOURCE = "rucene_tpu_torch/csrc/combine.cu"
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
+FIELDS_SEED = 23  # pack_corpus: the ts / tag / doc-value fields of phases 10-14
 
 
 T0 = time.perf_counter()
@@ -173,80 +195,7 @@ def log(msg: str) -> None:
     print(f"# [{time.perf_counter() - T0:6.1f}s] {msg}", flush=True)
 
 
-# --- the bench workload (bench.py:38-172) ------------------------------------
-
-
-def zipf_vocab(vocab_size: int = 20000):
-    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
-    probs = 1.0 / ranks**1.1
-    probs /= probs.sum()
-    vocab = np.array([f"w{i}" for i in range(vocab_size)])
-    return vocab, probs
-
-
-def build_corpus(n_docs: int, vocab_size: int = 20000, seed: int = 7):
-    rng = np.random.default_rng(seed)
-    vocab, probs = zipf_vocab(vocab_size)
-    lengths = rng.integers(8, 64, size=n_docs)
-    token_ids = rng.choice(vocab_size, size=int(lengths.sum()), p=probs)
-    texts = []
-    off = 0
-    for n in lengths:
-        texts.append(" ".join(vocab[token_ids[off : off + n]]))
-        off += n
-    return texts, vocab, probs
-
-
-def sample_bigrams(texts, n: int, seed: int = 77) -> list[tuple[str, str]]:
-    """bench.sample_bigrams: consecutive word pairs drawn from corpus text."""
-    rng = np.random.default_rng(seed)
-    out = []
-    if not texts:
-        return out
-    for _ in range(n * 4):
-        words = texts[int(rng.integers(0, len(texts)))].split()
-        if len(words) < 2:
-            continue
-        j = int(rng.integers(0, len(words) - 1))
-        out.append((words[j], words[j + 1]))
-        if len(out) >= n:
-            break
-    return out
-
-
-def build_queries(n_queries: int, vocab, probs, seed: int = 13, phrase_texts=None):
-    """bench.build_queries: 3/8 single-term, 2/8 two-term OR, 2/8 two-term
-    AND from the mid-frequency band, and 1/8 two-term exact phrases drawn
-    from phrase_texts (without phrase texts, AND rows take their place)."""
-    from rucene_tpu_torch import BooleanQuery, PhraseQuery, Term, TermQuery
-
-    rng = np.random.default_rng(seed)
-    band = np.arange(10, min(5000, len(vocab)))
-    band_p = probs[band] / probs[band].sum()
-    bigrams = sample_bigrams(phrase_texts or [], (n_queries + 7) // 8)
-    queries = []
-    bi = 0
-    for i in range(n_queries):
-        kind = i % 8
-        t1 = vocab[rng.choice(band, p=band_p)]
-        t2 = vocab[rng.choice(band, p=band_p)]
-        if kind == 7 and bigrams:
-            w1, w2 = bigrams[bi % len(bigrams)]
-            bi += 1
-            queries.append(PhraseQuery("body", [w1, w2]))
-        elif kind in (0, 1, 2):
-            queries.append(TermQuery(Term("body", t1)))
-        elif kind in (3, 4):
-            q = BooleanQuery()
-            q.should(TermQuery(Term("body", t1)))
-            q.should(TermQuery(Term("body", t2)))
-            queries.append(q)
-        else:
-            q = BooleanQuery()
-            q.must(TermQuery(Term("body", t1)))
-            q.must(TermQuery(Term("body", t2)))
-            queries.append(q)
-    return queries
+# --- the phases' rows (the bench's corpus and mix: drivers/workload.py) ------
 
 
 def head_pair_queries(vocab, n: int = 32, seed: int = 5):
@@ -340,7 +289,6 @@ def extras_queries(vocab, probs, seed: int = 19):
     return rows, head
 
 
-YEAR_S = 365 * 86400  # the ts field holds a second of one year
 MONTH_STARTS = np.cumsum([0, 31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30]) * 86400
 
 
@@ -417,44 +365,6 @@ def filter_queries(phrase_texts, vocab, probs, seed: int = 23):
     return stage_a, stage_b, host
 
 
-MONTH_S = YEAR_S // 12  # the ``month`` doc value is ts // MONTH_S
-N_GROUPS = 10_000  # grp: luceneutil's TermGroup10K
-
-
-def pack_corpus(texts, seed: int = 23):
-    """The packed segment of ``texts`` in ``body``, each doc with an
-    IntPoint ``ts`` (a second of one year, uniform) and, on one doc in 4, a
-    StringField ``tag`` (c000-c999, uniform), drawn from ``seed``: the
-    time and category a content search filters by. Phase 13's numeric doc
-    values ride beside them: ``ts`` (the point's value), ``month`` (ts //
-    MONTH_S) and ``grp`` (uniform 0-9,999, drawn after the others, so the
-    earlier fields keep their values)."""
-    from rucene_tpu_torch import Document, IntPoint, NumericDocValuesField, StringField, TextField
-    from rucene_tpu_torch.codec.postings import pack_segment
-    from rucene_tpu_torch.index.memory import SegmentBuffer
-
-    rng = np.random.default_rng(seed)
-    ts = rng.integers(0, YEAR_S, len(texts)).tolist()
-    tag = rng.integers(0, 1000, len(texts)).tolist()
-    tagged = (rng.random(len(texts)) < 0.25).tolist()
-    grp = rng.integers(0, N_GROUPS, len(texts)).tolist()
-    buf = SegmentBuffer()
-    docs = []
-    for i, t in enumerate(texts):
-        d = Document()
-        d.add(TextField("body", t))
-        d.add(IntPoint("ts", ts[i]))
-        if tagged[i]:
-            d.add(StringField("tag", f"c{tag[i]:03d}"))
-        d.add(NumericDocValuesField("ts", ts[i]))
-        d.add(NumericDocValuesField("month", ts[i] // MONTH_S))
-        d.add(NumericDocValuesField("grp", grp[i]))
-        docs.append(d)
-    buf.add_documents_bulk(docs)
-    del docs
-    return pack_segment(buf.finish())
-
-
 # --- measurement helpers ------------------------------------------------------
 
 
@@ -501,57 +411,16 @@ def profile_passes(searcher, queries, passes: int = 3, top: int = 10):
     return profile_fn(one_pass, passes, top)
 
 
-def profile_fn(one_pass, passes: int = 3, top: int = 10):
-    """profile_passes' figures over ``passes`` calls of one_pass()."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(passes):
-            one_pass()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total = sum(b - a for a, b in spans)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    by_name: dict = {}
-    for e in events:
-        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + e.time_range.elapsed_us()
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
-    return total / 1e3 / passes, busy / wall_us, [[n, us / 1e3 / passes] for n, us in ranked]
-
-
 def bound_ms(n_bytes: int) -> float:
     return n_bytes / HBM_BYTES_PER_MS
 
 
 def serve(searcher, queries, depth: int = 3, min_s: float = 5.0, max_reps: int = 10):
-    """Pipelined passes over the queries (batch BATCH); returns (qps, last
-    pass's TopDocs)."""
-    from collections import deque
-
-    t0 = time.perf_counter()
-    reps = 0
-    pending: deque = deque()
-    results = []
-    while reps < 3 or (time.perf_counter() - t0 < min_s and reps < max_reps):
-        results = []
-        for i in range(0, len(queries), BATCH):
-            pending.append(searcher.search_batch_async(queries[i : i + BATCH], k=K))
-            while len(pending) >= depth:
-                results.extend(pending.popleft()())
-        while pending:
-            results.extend(pending.popleft()())
-        reps += 1
+    """The bench's serving loop (drivers.bench.serve_mix) at batch BATCH
+    and k=K; returns (qps, last pass's TopDocs)."""
+    served = serve_mix(searcher, queries, BATCH, K, depth, min_s, max_reps)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return reps * len(queries) / wall, results
+    return served.qps, served.results
 
 
 def phrase_gates(counters, n_rows: int, n_phrase: int, n_queries: int, full: bool, where: str):
@@ -1602,6 +1471,145 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
     return figures, launches
 
 
+# --- phase 15: the port's entry points (rucene_tpu_torch/drivers, examples) --
+
+DRIVER_NRT_DOCS = 20_000  # drivers.bench --nrt's base docs
+DRIVER_NRT_SECONDS = 5.0
+DRIVER_TIMEOUT_S = 300  # each subprocess
+K_NAMES = {  # each kernel's name in a torch.profiler trace
+    "decode_blocks": "decode_blocks_kernel",
+    "decode_score_blocks": "decode_score_blocks_kernel",
+    "combine_lanes": "combine_lanes_kernel",
+}
+
+
+def run_module(args, where: str) -> tuple[str, str]:
+    """(stdout, stderr) of ``python -m <args>`` from this checkout; a
+    non-zero exit or a run past DRIVER_TIMEOUT_S raises."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=root, capture_output=True,
+                          text=True, timeout=DRIVER_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{where} failed (rc {proc.returncode}):\n{proc.stderr[-3000:]}")
+    return proc.stdout, proc.stderr
+
+
+def serve_drivers(searchers, mix, mix_answers, dense_q, card) -> tuple[dict, dict]:
+    """Phase 15: the port's own entry points, on the 1M-doc readers of
+    phases 3-9 (``searchers``: decoded, packed; the packed one with the
+    plain decode twins refused), after phase 14:
+      A. drivers.bench.serve_mix, the bench's serving loop, over the whole
+         mix on each reader (counts set to 0 just before, read just
+         after): every TopDocs equal to phase 4's (decoded) or phase 8's
+         (packed) last pass under tests/torch_hitcheck.py; its QPS and
+         batch latency p50 / p99;
+      B. both examples (rucene_tpu_torch.examples) as subprocesses on the
+         card and with --device cpu: examples.stable_lines of the two runs
+         equal;
+      C. ``python -m rucene_tpu_torch.drivers.bench --nrt`` on the card at
+         DRIVER_NRT_DOCS base docs for DRIVER_NRT_SECONDS: its JSON line
+         has bench.py's keys and a QPS above 0, and it ingested docs;
+      D. drivers.profile_bench.capture of 2 batches on the packed reader
+         (the mix's first batch, then the head-band rows), analysed from
+         the trace file: the batch's host spans appear as often as
+         util/metrics counted them, and K1, K2 and K3 appear by name.
+    Returns (figures, launches of A and D)."""
+    import tempfile
+
+    from rucene_tpu_torch.drivers import bench as drv_bench
+    from rucene_tpu_torch.drivers import profile_bench
+    from rucene_tpu_torch.examples import stable_lines
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.util.metrics import METRICS
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
+
+    counter_of = {"decode_blocks": cuda_decode.LAUNCH_COUNTER,
+                  "decode_score_blocks": cuda_decode.SCORE_LAUNCH_COUNTER,
+                  "combine_lanes": cuda_combine.LAUNCH_COUNTER}
+    launches = dict.fromkeys(counter_of, 0)
+
+    def count_launches():
+        c = METRICS.snapshot()["counters"]
+        for name, key in counter_of.items():
+            launches[name] += c.get(key, 0)
+
+    figures: dict = {}
+    # A. the bench's serving loop on both readers
+    for kind, searcher in searchers.items():
+        refuse = plain_decode_refused if kind == "packed" else contextlib.nullcontext
+        METRICS.reset()
+        with refuse():
+            served = drv_bench.serve_mix(searcher, mix, BATCH, K)
+        count_launches()
+        for i, (g, w) in enumerate(zip(served.results, mix_answers[kind])):
+            try:
+                assert_topdocs_strict(g, w)
+            except AssertionError as e:
+                raise AssertionError(f"phase 15 serve_mix, {kind} row {i}: {e}") from None
+        p50, p99 = np.percentile(served.batch_ms, [50, 99])
+        figures[f"{kind}_serve_mix"] = {"qps": served.qps, "reps": served.reps,
+                                        "batch_ms_p50": float(p50), "batch_ms_p99": float(p99)}
+        log(f"phase 15, {kind}: drivers.bench.serve_mix {served.qps:.1f} QPS over {served.reps} "
+            f"passes on {card}, {drv_bench.latency_line(served.batch_ms)}; all {len(mix)} rows "
+            f"equal phase {4 if kind == 'decoded' else 8}'s")
+
+    # B. the examples, on the card and on the CPU
+    for name in ("example", "nrt_search"):
+        t = time.perf_counter()
+        on_card, _ = run_module([f"rucene_tpu_torch.examples.{name}"], f"examples.{name} on the card")
+        card_s = time.perf_counter() - t
+        on_cpu, _ = run_module([f"rucene_tpu_torch.examples.{name}", "--device", "cpu"],
+                               f"examples.{name} on the CPU")
+        want, got = stable_lines(on_cpu), stable_lines(on_card)
+        if got != want:
+            raise AssertionError(f"examples.{name}: the card printed {got}, the CPU {want}")
+        figures[f"example_{name}_s"] = card_s
+        log(f"phase 15: examples.{name} on the card in {card_s:.1f}s prints the CPU run's "
+            f"{len(got)} lines")
+
+    # C. the NRT bench
+    stdout, stderr = run_module(["rucene_tpu_torch.drivers.bench", "--nrt", "--docs",
+                                 str(DRIVER_NRT_DOCS), "--seconds", str(DRIVER_NRT_SECONDS)],
+                                "drivers.bench --nrt")
+    line = json.loads(stdout.strip().splitlines()[-1])
+    if set(line) != {"metric", "value", "unit", "vs_baseline"} or not line["value"] > 0:
+        raise AssertionError(f"drivers.bench --nrt printed {line}")
+    ingest = [ln for ln in stderr.splitlines() if ln.startswith("# nrt: ingested")]
+    if not ingest or ingest[-1].split()[3] == "0":
+        raise AssertionError(f"drivers.bench --nrt ingested nothing: {ingest}")
+    figures["nrt_bench"] = {"qps": line["value"], "log": ingest[-1]}
+    log(f"phase 15: drivers.bench --nrt ({DRIVER_NRT_DOCS} base docs, {DRIVER_NRT_SECONDS}s): "
+        f"{line['value']} QPS on {card}; {ingest[-1][2:]}")
+
+    # D. a profile of two batches on the packed reader
+    packed = searchers["packed"]
+    batches = [mix[:BATCH], dense_q]
+    with tempfile.TemporaryDirectory(prefix="rtpu_prof_") as tmp, plain_decode_refused():
+        for b in batches:  # capture's warm pass, counted outside the capture
+            packed.search_batch(b, k=K)
+        METRICS.reset()
+        path = profile_bench.capture(tmp, packed, batches, K, warm=0)
+        count_launches()
+        timers = METRICS.snapshot()["timers"]
+        trace_mb = os.path.getsize(path) / 2**20
+        prof = profile_bench.analyze(path)
+    want_spans = {n: t["count"] for n, t in timers.items() if n != "search.batch"}
+    got_spans = {n: c for n, (_ms, c) in prof["spans"].items() if n.startswith("search.")}
+    if got_spans != want_spans or "search.phrases" not in got_spans:
+        raise AssertionError(f"profile spans {got_spans} != the timers' {want_spans}")
+    names = " ".join(n for n, _ms, _c in prof["ops"])  # every device op, ranked
+    missing = [k for k, v in K_NAMES.items() if v not in names]
+    if missing:
+        raise AssertionError(f"the profile's top kernels lack {missing}: {names[:2000]}")
+    figures["profile"] = {"busy": prof["busy"], "span_ms": prof["span_ms"], "trace_mib": trace_mb,
+                          "spans": prof["spans"], "top": prof["ops"][:8]}
+    log(f"phase 15: profile_bench capture of 2 packed batches ({trace_mb:.1f} MiB trace): device "
+        f"busy {prof['busy']:.1%} of {prof['span_ms']:.1f} ms; spans {got_spans}; K1, K2 and K3 "
+        "among the top kernels")
+    return figures, launches
+
+
 # --- phase 12: NRT on the card (bench.py:519-640 main_nrt, its defaults) -----
 
 NRT_BASE = 200_000  # base docs through the writer
@@ -2516,7 +2524,7 @@ def main() -> int:
     filter_a, filter_b, host_q = filter_queries(texts[:5000], vocab, probs)  # phase 11's rows
     surface_q = surface_queries(texts[:5000], vocab, probs)  # phase 13's rows
     sharded_q = sharded_queries(texts[:5000], vocab, probs)  # phase 14's rows
-    packed = pack_corpus(texts)
+    packed = pack_corpus(texts, fields_seed=FIELDS_SEED)
     del texts
     from rucene_tpu_torch.util.packing import EF_TAG
 
@@ -2763,6 +2771,13 @@ def main() -> int:
     )
     del cpu_reader, cpu_searcher
 
+    # 15. the port's entry points on both readers: the bench's serving loop,
+    # the examples, the NRT bench and a profile capture
+    p15, p15_launches = serve_drivers(
+        {"decoded": searcher, "packed": packed_searcher}, queries,
+        {"decoded": mix_results, "packed": packed_results}, dense_q, card,
+    )
+
     # 12. NRT on the card, after releasing phases 1-11's device state
     del searcher, packed_searcher, reader, leaf, gdev, tf_planes, pdev, k2_args, got, want
     del items, item_row, item_enc, lanes, keep
@@ -2784,7 +2799,8 @@ def main() -> int:
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
          "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"]
          + p11["launches"]["decode_blocks"] + p13["launches"]["decode_blocks"]
-         + nrt_launches["decode_blocks"] + p14_launches["decode_blocks"],
+         + nrt_launches["decode_blocks"] + p14_launches["decode_blocks"]
+         + p15_launches["decode_blocks"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
@@ -2792,7 +2808,8 @@ def main() -> int:
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
          "launches": k2_launches + p10["launches"]["decode_score_blocks"]
          + p11["launches"]["decode_score_blocks"] + p13["launches"]["decode_score_blocks"]
-         + nrt_launches["decode_score_blocks"] + p14_launches["decode_score_blocks"],
+         + nrt_launches["decode_score_blocks"] + p14_launches["decode_score_blocks"]
+         + p15_launches["decode_score_blocks"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
@@ -2800,7 +2817,7 @@ def main() -> int:
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
          "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"]
          + p13["launches"]["combine_lanes"] + nrt_launches["combine_lanes"]
-         + p14_launches["combine_lanes"],
+         + p14_launches["combine_lanes"] + p15_launches["combine_lanes"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
@@ -2821,7 +2838,7 @@ def main() -> int:
         "host_s": [p11["decoded_host_s"], p11["packed_host_s"]],
         "query_surface": {"decoded": p13["decoded"], "packed": p13["packed"]},
         "nrt": p12, "nrt_launches": nrt_launches, "sharded": p14,
-        "sharded_launches": p14_launches}))
+        "sharded_launches": p14_launches, "drivers": p15, "drivers_launches": p15_launches}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

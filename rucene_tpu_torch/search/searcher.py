@@ -27,7 +27,12 @@ of plain terms) is planned as that term or phrase row, as the reference's
 collected, in that order, so the phrase work queues behind the term rows'
 kernels, and the host rows run while all of it is in flight. Counters
 ``route.device``, ``route.phrase``, ``route.mixed``, ``route.synonym``,
-``route.span_unordered`` and ``route.host`` count the rows of each.
+``route.span_unordered`` and ``route.host`` count the rows of each. The
+batch's host phases are the reference's trace spans (util/metrics.trace):
+``search.device.dispatch``, ``search.phrases.dispatch`` and
+``search.mixed.dispatch`` around the queueing, and ``search.device``,
+``search.phrases``, ``search.mixed``, ``search.synonyms`` and
+``search.span_unordered`` around each path's finish in collect().
 
 Beside search_batch: search_sorted, search_sorted_early_terminated and
 search_collapse (search/sorted_path.py), explain (search/explain.py) and,
@@ -89,6 +94,7 @@ from __future__ import annotations
 
 import os
 import time
+from contextlib import nullcontext
 from typing import NamedTuple
 
 import numpy as np
@@ -137,7 +143,7 @@ from rucene_tpu_torch.search.query import (
 )
 from rucene_tpu_torch.search.similarity import BM25Similarity, CollectionStats
 from rucene_tpu_torch.search.sorted_path import SortedPathMixin
-from rucene_tpu_torch.util.metrics import METRICS
+from rucene_tpu_torch.util.metrics import METRICS, trace
 
 SPLIT_MIN_DOCS = 1 << 19  # corpus size from which mixed batches split by row class
 # a row takes the planes when its densest clause has df * PLANE_ROUTE_DIV
@@ -288,38 +294,49 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         # queue every device path before collecting any, in the reference's
         # order: the phrase, mixed, synonym and span work queues behind the
         # term rows' kernels, and the scalar phrase rows and the host rows
-        # run on the host while all of it is in flight
-        paths = []
+        # run on the host while all of it is in flight. The trace spans are
+        # the reference's: one around each of the first three dispatches,
+        # one around each path's finish in collect() (the host rows have
+        # none)
+        paths = []  # (row indices, finish, collect span or None)
         if device_idx:
-            paths.append((device_idx, self._search_device(
-                [plans[i].rq for i in device_idx], k, [plans[i] for i in device_idx]
-            )))
+            with trace("search.device.dispatch"):
+                finish = self._search_device(
+                    [plans[i].rq for i in device_idx], k, [plans[i] for i in device_idx]
+                )
+            paths.append((device_idx, finish, "search.device"))
         if phrase_idx:
-            paths.append((phrase_idx, self._search_phrases_device(
-                [queries[i] for i in phrase_idx], [plans[i].rq for i in phrase_idx], k,
-                _defer=True,
-            )))
+            with trace("search.phrases.dispatch"):
+                finish = self._search_phrases_device(
+                    [queries[i] for i in phrase_idx], [plans[i].rq for i in phrase_idx], k,
+                    _defer=True,
+                )
+            paths.append((phrase_idx, finish, "search.phrases"))
         if mixed_idx:
-            paths.append((mixed_idx, self._search_mixed_device(
-                [queries[i] for i in mixed_idx], [plans[i].rq for i in mixed_idx], k,
-                _defer=True,
-            )))
+            with trace("search.mixed.dispatch"):
+                finish = self._search_mixed_device(
+                    [queries[i] for i in mixed_idx], [plans[i].rq for i in mixed_idx], k,
+                    _defer=True,
+                )
+            paths.append((mixed_idx, finish, "search.mixed"))
         if syn_idx:
             paths.append((syn_idx, self._search_synonym_device(
                 [queries[i] for i in syn_idx], k, _defer=True
-            )))
+            ), "search.synonyms"))
         if spanu_idx:
             paths.append((spanu_idx, self._search_span_unordered_device(
                 [queries[i] for i in spanu_idx], k, _defer=True
-            )))
+            ), "search.span_unordered"))
         if host_idx:
             host_hits = [self._search_host(queries[i], k) for i in host_idx]
-            paths.append((host_idx, lambda: host_hits))
+            paths.append((host_idx, lambda: host_hits, None))
 
         def collect() -> list[TopDocs]:
             out: list[TopDocs | None] = [None] * len(queries)
-            for idx, finish in paths:
-                for i, td in zip(idx, finish()):
+            for idx, finish, span in paths:
+                with trace(span) if span else nullcontext():
+                    hits = finish()
+                for i, td in zip(idx, hits):
                     out[i] = td
             METRICS.observe("search.batch", time.perf_counter() - t_start)
             return out  # type: ignore[return-value]

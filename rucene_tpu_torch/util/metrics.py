@@ -1,5 +1,5 @@
-"""Process-wide counters and timers (counterpart: rucene_tpu/util/metrics.py,
-without its profiler hooks).
+"""Process-wide counters and timers (counterpart of
+rucene_tpu/util/metrics.py).
 
 Counters in use:
 - ``route.device`` / ``route.phrase``: term and boolean rows, and pure
@@ -18,14 +18,39 @@ Counters in use:
   right where it launches (never for the CPU twin);
 - ``reader.device_builds``: device forms built for a segment on a device
   (index/reader.py; a delete or doc-values update builds none);
-- ``writer.flushes``, ``writer.merges``, ``writer.merge_errors`` and the
-  ``writer.flush`` timer (index/writer.py).
+- ``writer.flushes``, ``writer.merges``, ``writer.merge_errors``
+  (index/writer.py).
+
+Timers in use (``snapshot()["timers"]``: total_s, count, mean_ms, max_ms):
+- ``search.batch``: a batch from search_batch_async to the end of its
+  collect();
+- the host phases of a batch, as ``trace`` spans (search/searcher.py):
+  ``search.device.dispatch``, ``search.phrases.dispatch`` and
+  ``search.mixed.dispatch`` (queueing the term, phrase and mixed paths:
+  host time, no device sync), then in collect() ``search.device``,
+  ``search.phrases``, ``search.mixed``, ``search.synonyms`` and
+  ``search.span_unordered`` (each path's finish, its wait for the
+  device included);
+- ``writer.flush`` (index/writer.py).
+
+Port changes (the drift guard in tests/test_torch_host.py compares the
+rest with the reference):
+- trace: annotates a torch.profiler capture with record_function where
+  the reference annotates a jax.profiler one;
+- start_profiler: a torch.profiler.profile of the CPU activity, and of
+  the CUDA activity when the device is CUDA (the default when a card is
+  present), in place of jax.profiler.start_trace;
+- stop_profiler: writes the capture as a Chrome trace under start's
+  log_dir and returns its path;
+- _PROFILER: the running capture and its log_dir.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import defaultdict
+from contextlib import contextmanager
 
 
 class Metrics:
@@ -34,6 +59,7 @@ class Metrics:
         self.counters: dict[str, int] = defaultdict(int)
         self.timer_totals: dict[str, float] = defaultdict(float)
         self.timer_counts: dict[str, int] = defaultdict(int)
+        self.timer_max: dict[str, float] = defaultdict(float)
 
     def incr(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -43,13 +69,28 @@ class Metrics:
         with self._lock:
             self.timer_totals[name] += seconds
             self.timer_counts[name] += 1
+            if seconds > self.timer_max[name]:
+                self.timer_max[name] = seconds
+
+    @contextmanager
+    def timed(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(name, time.perf_counter() - t0)
 
     def snapshot(self) -> dict:
         with self._lock:
             return {
                 "counters": dict(self.counters),
                 "timers": {
-                    k: {"total_s": self.timer_totals[k], "count": self.timer_counts[k]}
+                    k: {
+                        "total_s": self.timer_totals[k],
+                        "count": self.timer_counts[k],
+                        "mean_ms": 1000.0 * self.timer_totals[k] / max(1, self.timer_counts[k]),
+                        "max_ms": 1000.0 * self.timer_max[k],
+                    }
                     for k in self.timer_totals
                 },
             }
@@ -59,6 +100,62 @@ class Metrics:
             self.counters.clear()
             self.timer_totals.clear()
             self.timer_counts.clear()
+            self.timer_max.clear()
 
 
 METRICS = Metrics()  # process-wide default registry
+
+
+@contextmanager
+def trace(name: str, registry: Metrics | None = None):
+    """Scoped timing that also annotates a torch.profiler capture, so a
+    trace shows the engine's host phases (e.g. 'search.device') beside the
+    device timeline. It adds no device sync: around a dispatch it measures
+    host time, around a collect the wait for the device as well."""
+    from torch.profiler import record_function
+
+    reg = registry or METRICS
+    t0 = time.perf_counter()
+    with record_function(name):
+        try:
+            yield
+        finally:
+            reg.observe(name, time.perf_counter() - t0)
+
+
+_PROFILER = {}  # the running capture: its "prof" and "log_dir"
+
+
+def start_profiler(log_dir: str, device=None) -> None:
+    """Begin a torch.profiler capture: CPU activity, and CUDA activity when
+    ``device`` is CUDA (default: when a card is present). stop_profiler
+    writes it under log_dir as a Chrome trace (chrome://tracing,
+    Perfetto). One capture at a time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if _PROFILER:
+        raise RuntimeError("a profiler capture is already running")
+    if device is None:
+        cuda = torch.cuda.is_available()
+    else:
+        cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    prof = profile(activities=activities)
+    prof.start()
+    _PROFILER.update(prof=prof, log_dir=log_dir)
+
+
+def stop_profiler() -> str:
+    """End the capture and write it to ``<log_dir>/trace-<pid>-<ns>.pt.trace.json``;
+    returns that path."""
+    import os
+
+    if not _PROFILER:
+        raise RuntimeError("no profiler capture is running")
+    prof, log_dir = _PROFILER.pop("prof"), _PROFILER.pop("log_dir")
+    prof.stop()
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    return path

@@ -7,17 +7,19 @@ the reference's modules.
     with IndexWriter into a temporary FSDirectory, reopen them with
     open_directory_reader and serve two rows (and again through the
     combined view), serve three rows on a two-shard mesh
-    (rucene_tpu_torch.parallel) and lay out a pod mesh, and serve a parsed query
+    (rucene_tpu_torch.parallel) and lay out a pod mesh, serve a parsed query
     string, a SpanOrQuery, an unordered SpanNearQuery, a sorted row and a
-    collapse row from an index with doc values: the card's host has no
-    jax.
+    collapse row from an index with doc values, and import every entry
+    point (rucene_tpu_torch.drivers, rucene_tpu_torch.examples): the card's
+    host has no jax.
 (b) Drift guard: every host module the port copies from rucene_tpu equals
     its original (syntax tree, module docstring aside) once the import
     prefix is mapped, apart from the definitions its docstring lists under
     "Port changes". The index format and the query semantics cannot drift
     apart unnoticed.
-(c) chip_smoke.py's corpus, bigram sampler and query builder reproduce
-    bench.py's, phrase rows included.
+(c) chip_smoke.py's corpus, bigram sampler and query builder, which it
+    imports from rucene_tpu_torch/drivers/workload.py, reproduce bench.py's,
+    phrase rows included.
 """
 
 import ast
@@ -79,6 +81,7 @@ COPIED = [
     "util/bkd.py",
     "util/front_coding.py",
     "util/lz4_py.py",
+    "util/metrics.py",
     "util/packing.py",
     "util/small_float.py",
 ]
@@ -165,6 +168,10 @@ surface = dv.search_batch(
 srt = dv.search_sorted(T.TermQuery(T.Term("body", "gamma")), 10,
                        T.Sort([T.SortField("rank", SortFieldType.LONG, reverse=True)]))
 col = dv.search_collapse(T.TermQuery(T.Term("body", "gamma")), 10, "rank")
+import rucene_tpu_torch.drivers.bench, rucene_tpu_torch.drivers.build_bench_cache
+import rucene_tpu_torch.drivers.graft_entry, rucene_tpu_torch.drivers.profile_bench
+import rucene_tpu_torch.drivers.workload, rucene_tpu_torch.examples.example
+import rucene_tpu_torch.examples.nrt_search
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rucene_tpu"))
 print(json.dumps({
     "loaded": loaded,
@@ -273,7 +280,10 @@ def test_copied_module_matches_reference(rel):
 def test_smoke_workload_matches_bench():
     import bench
     import chip_smoke
+    from rucene_tpu_torch.drivers import workload
 
+    for name in ("build_corpus", "sample_bigrams", "build_queries", "pack_corpus", "YEAR_S"):
+        assert getattr(chip_smoke, name) is getattr(workload, name)
     texts, vocab, probs = chip_smoke.build_corpus(300)
     b_texts, b_vocab, b_probs = bench.build_corpus(300)
     assert texts == b_texts

@@ -4,10 +4,15 @@ a time (not a pytest module).
     python3 tests/torch_perf_ab.py --root DIR --label NAME [--phrases]
 
 imports ``rucene_tpu_torch`` from DIR (a checkout of the port) and the
-corpus, query, replay and timing helpers from this checkout's
-``chip_smoke.py``, so two trees are measured by one harness. On the 1M-doc bench corpus (``BENCH_DOCS`` overrides) it measures:
+query, replay and timing helpers from this checkout's ``chip_smoke.py``,
+so two trees are measured by one harness. The smoke takes the corpus, the
+mix, the serving loop and ``profile_fn`` from ``rucene_tpu_torch/drivers/``,
+so DIR must have that package; a tree from before it is measured with its
+own copy of this harness (``cd DIR && python3 tests/torch_perf_ab.py --root
+.``). On the 1M-doc bench corpus (``BENCH_DOCS`` overrides) it measures:
   - QPS of the bench mix from a decoded and from a packed reader (the
-    smoke's ``serve``: pipelined, three batches deep);
+    smoke's ``serve``, drivers.bench.serve_mix: pipelined, three batches
+    deep);
   - kernel time per pass, the device busy share (the union of kernel
     intervals over the wall time) and the ten kernels that took the most
     device time under ``torch.profiler``, over three pipelined passes of
@@ -79,7 +84,7 @@ def main() -> int:
     queries = smoke.build_queries(
         smoke.N_QUERIES, vocab, probs, phrase_texts=texts[:5000] if args.phrases else None
     )
-    packed = smoke.pack_corpus(texts)
+    packed = smoke.pack_corpus(texts, fields_seed=smoke.FIELDS_SEED)
     del texts
 
     def reader():
