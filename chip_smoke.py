@@ -140,6 +140,17 @@ Builds the CUDA kernels and the native library from this checkout, then:
      spans as often as util/metrics timed them and K1, K2 and K3 by name.
      Its figures print under ``drivers``, its in-process launches under
      ``drivers_launches`` and in the kernels' rows.
+ 16. block-max pruning on both readers (serve_pruning, after phase 15,
+     before phase 12): ops/topk.exact_top_k's chunk pass held bit-equal to
+     stable_top_k on the dense rows of phase 9's head-band batch and timed
+     beside it, the mix profiled with and without it (stable_top_k patched in);
+     WAND (search_batch(prune=)) on 3-term and 2-term band OR rows at
+     k = 10 and 32 against exhaustive serving, and the automatic rule under
+     a lowered threshold; and a skewed 200,000-doc corpus in 4 segments
+     where pruning fires, per leaf and combined. Its gates are in
+     serve_pruning's docstring; its figures print under ``topk`` and
+     ``pruning``, its launches under ``pruning_launches`` and in the
+     kernels' rows.
 Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
@@ -151,7 +162,8 @@ extras_qps, mixed_rows and the mixed chunk's bytes a (row, doc), and
 phase 11's filter_qps, filter_packed_qps, filter_kernel_ms_busy,
 filter_planes and host_rows, phase 13's figures under ``query_surface``,
 phase 14's under ``sharded`` with its launches under ``sharded_launches``,
-phase 15's under ``drivers`` and ``drivers_launches``, and phase 12's figures under ``nrt`` with its launches under
+phase 15's under ``drivers`` and ``drivers_launches``, phase 16's under
+``topk``, ``pruning`` and ``pruning_launches``, and phase 12's figures under ``nrt`` with its launches under
 ``nrt_launches``), the card's name and power limit, and the device line.
 """
 
@@ -1610,6 +1622,374 @@ def serve_drivers(searchers, mix, mix_answers, dense_q, card) -> tuple[dict, dic
     return figures, launches
 
 
+# --- phase 16: block-max pruning (ops/topk.exact_top_k, search_batch(prune=)) --
+
+PRUNE_SEED = 37  # phase 16's WAND rows
+TOPK_KS = (10, 100, 1000)
+WAND_KS = (10, 32)
+WIDE_K = 1000  # the exhaustive answer the 3-term pruned rows are held to
+AUTO_MIN_DOCS = 524_288  # RUCENE_PRUNE_AUTO_MIN_DOCS for the auto stage
+HOT_DOCS = 200_000  # stage F's corpus
+HOT_IMPACT = 50  # one doc in HOT_IMPACT repeats a cold word 6 times
+TOPK_MARKS = ("topk", "kthvalue", "kthcounts", "withinkcounts")  # radix-select kernels
+
+
+def wand_queries(vocab, probs, terms: int, n: int = BATCH, seed: int = PRUNE_SEED):
+    """Pure-OR rows of ``terms`` distinct terms from the bench's band
+    (ranks 10-5000, Zipf-weighted), drawn from ``seed``."""
+    from rucene_tpu_torch import BooleanQuery, Term, TermQuery
+
+    rng = np.random.default_rng(seed)
+    draw = band_sampler(vocab, probs, rng)
+    out = []
+    for _ in range(n):
+        words: list = []
+        while len(words) < terms:
+            w = draw()
+            if w not in words:
+                words.append(w)
+        q = BooleanQuery()
+        for w in words:
+            q.should(TermQuery(Term("body", w)))
+        out.append(q)
+    return out
+
+
+def hot_cold_texts(n: int = HOT_DOCS, seed: int = 42):
+    """tests/test_combined_view.py:76's skewed corpus at ``n`` docs of 12
+    words ("hot" at weight 400 against 300 cold words at 1), with one doc
+    in HOT_IMPACT whose first 6 words are one cold word: the block maxima
+    then vary, as WAND needs (on the corpus alone no deferred block falls
+    below the threshold)."""
+    rng = np.random.default_rng(seed)
+    words = ["hot"] + [f"cold{i}" for i in range(300)]
+    probs = np.ones(len(words))
+    probs[0] = 400
+    probs /= probs.sum()
+    widx = rng.choice(len(words), size=(n, 12), p=probs)
+    impact = rng.random(n) < 1.0 / HOT_IMPACT
+    widx[impact, :6] = rng.integers(1, len(words), int(impact.sum()))[:, None]
+    return [" ".join(words[j] for j in row) for row in widx]
+
+
+def dense_topk_rows(searcher, rows) -> torch.Tensor:
+    """The f32 [B, md] rows the executors hand topk_score_doc while
+    ``searcher`` serves ``rows`` (the dense branch, or the tf-plane
+    route's dense math), concatenated."""
+    from rucene_tpu_torch.search import executor
+
+    md = searcher.reader.leaves[0].device.max_doc_padded
+    seen = []
+    orig = executor.topk_score_doc
+
+    def spy(scores, k):
+        if scores.dim() == 2 and scores.shape[1] == md and scores.dtype == torch.float32:
+            seen.append(scores.clone())
+        return orig(scores, k)
+
+    executor.topk_score_doc = spy
+    try:
+        searcher.search_batch(rows, k=K)
+    finally:
+        executor.topk_score_doc = orig
+    if not seen:
+        raise AssertionError("no dense row reached topk_score_doc")
+    return torch.cat(seen)
+
+
+def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
+                  hot_docs: int = HOT_DOCS) -> tuple[dict, dict]:
+    """Phase 16, block-max pruning, on the 1M-doc readers of phases 3-9
+    (``searchers``: decoded, packed; the packed one with the plain decode
+    twins refused), after phase 15:
+      T. top-k: the [B, md] f32 rows the executors pass to topk_score_doc
+         for phase 9's head-band batch (plane rows on the decoded reader,
+         the dense branch on the packed one; real BM25 rows with ties),
+         tiled to 256 rows: exact_top_k (the chunk pass, which must
+         engage) bit-equal to stable_top_k at k = 10, 100 and 1,000, both
+         timed with cuda_ms beside one torch.topk over the raw rows and
+         the bound, one read of the rows; then one torch.profiler pass of
+         the bench mix with the chunk pass and one with stable_top_k patched in
+         on each reader: kernel ms a pass, the radix-select kernels' ms
+         (TOPK_MARKS) and busy, every TopDocs equal to phase 4's or 8's.
+      W. WAND on the 1M-doc corpus: 256 pure-OR rows of 3 band terms
+         (seed PRUNE_SEED) on both readers, and 256 of 2 terms on the
+         packed one, at k = 10 and 32, served with prune=False and
+         prune=True (drivers.bench.serve_mix): hits equal under
+         tests/torch_hitcheck.py (assert_pruned_strict for the 2-term
+         rows; the 3-term rows' sums take an unspecified order on the
+         card, so they are held by assert_truncated_within_rtol to their
+         exhaustive answer at k=WIDE_K, and the rows that cross the k-th
+         hit are logged with each crossing doc's scores in both runs),
+         pruned total_hits never above the exhaustive; QPS both ways,
+         search.pruned_blocks, search.prune_rerun_rows and the busy
+         share of a pruned pass. Then
+         prune=None with RUCENE_PRUNE_AUTO_MIN_DOCS=524288:
+         search.auto_prune_batches > 0 on the 3-term rows at k=10 and 0 on
+         the bench mix at k=100.
+      F. pruning that fires: hot_cold_texts at ``hot_docs`` docs, written
+         by the port's IndexWriter into 4 segments, served per leaf and
+         through the combined view on the card at k = 1 and 5:
+         search.pruned_blocks > 0 each way, hits equal to prune=False's.
+    Each stage runs with its counts set to 0 just before and read just
+    after. Returns ({"topk": ..., "pruning": ...}, launches)."""
+    from rucene_tpu_torch import IndexSearcher, IndexWriter, IndexWriterConfig
+    from rucene_tpu_torch import Document, RAMDirectory, TextField
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.ops import topk
+    from rucene_tpu_torch.util.metrics import METRICS
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_hitcheck import (
+        assert_pruned_strict,
+        assert_topdocs_strict,
+        assert_truncated_within_rtol,
+    )
+
+    counter_of = {"decode_blocks": cuda_decode.LAUNCH_COUNTER,
+                  "decode_score_blocks": cuda_decode.SCORE_LAUNCH_COUNTER,
+                  "combine_lanes": cuda_combine.LAUNCH_COUNTER}
+    launches = dict.fromkeys(counter_of, 0)
+
+    def count_launches():
+        c = METRICS.snapshot()["counters"]
+        for name, key in counter_of.items():
+            launches[name] += c.get(key, 0)
+
+    def refuse(kind):
+        return plain_decode_refused() if kind == "packed" else contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def env(name, value):
+        prev = os.environ.get(name)
+        os.environ[name] = value
+        try:
+            yield
+        finally:
+            if prev is None:
+                os.environ.pop(name)
+            else:
+                os.environ[name] = prev
+
+    @contextlib.contextmanager
+    def top_k_by(way):
+        """Every dense top-k (topk_score_doc) through the chunk pass, or
+        through stable_top_k over the whole row for the A/B."""
+        orig = topk.exact_top_k
+        if way == "stable":
+            topk.exact_top_k = topk.stable_top_k
+        try:
+            yield
+        finally:
+            topk.exact_top_k = orig
+
+    topk_fig: dict = {}
+    # T. the top-k over real dense rows, then the mix both ways
+    for kind, searcher in searchers.items():
+        METRICS.reset()
+        with refuse(kind):
+            rows = dense_topk_rows(searcher, dense_q)
+        count_launches()
+        b0, md = rows.shape
+        rows = rows.repeat((BATCH + b0 - 1) // b0, 1)[:BATCH].contiguous()
+        bound = bound_ms(rows.numel() * 4)
+        per_k = {}
+        for k in TOPK_KS:
+            if not topk.chunk_pass_engages(md, k):
+                raise AssertionError(f"phase 16: the chunk pass does not engage at [{BATCH}, {md}] "
+                                     f"k={k}")
+            got, want = topk.exact_top_k(rows, k), topk.stable_top_k(rows, k)
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"phase 16, {kind}: exact_top_k differs from stable_top_k "
+                                     f"at k={k}")
+            ms = cuda_ms(topk.exact_top_k, (rows, k), reps=10, copies=2)
+            stable_ms = cuda_ms(topk.stable_top_k, (rows, k), reps=10, copies=2)
+            lib_ms = cuda_ms(torch.topk, (rows, k), reps=10, copies=2)
+            per_k[str(k)] = {"ms": ms, "stable_ms": stable_ms, "torch_topk_ms": lib_ms}
+            log(f"phase 16 T, {kind}: top-{k} of [{BATCH}, {md}] f32 rows ({b0} head-band rows "
+                f"tiled): chunk pass {ms:.4f} ms, stable_top_k {stable_ms:.4f} ms, one torch.topk "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms (one read of the rows); bit-equal")
+        del rows, got, want
+        passes = {}
+        for way in ("chunk", "stable"):
+            results: list = [None] * len(mix)
+
+            def one_pass(searcher=searcher, results=results):
+                pending = []
+                for i in range(0, len(mix), BATCH):
+                    pending.append((i, searcher.search_batch_async(mix[i:i + BATCH], k=K)))
+                    while len(pending) >= 3:
+                        j, collect = pending.pop(0)
+                        results[j:j + BATCH] = collect()
+                while pending:
+                    j, collect = pending.pop(0)
+                    results[j:j + BATCH] = collect()
+
+            METRICS.reset()
+            with top_k_by(way), refuse(kind):
+                one_pass()  # warm
+                kernel_ms, busy, ranked = profile_fn(one_pass, 1, 1000)
+            count_launches()
+            for i, (g, w) in enumerate(zip(results, mix_answers[kind])):
+                try:
+                    assert_topdocs_strict(g, w)
+                except AssertionError as e:
+                    raise AssertionError(f"phase 16 T, {kind} top-k by {way}, row {i}: "
+                                         f"{e}") from None
+            select_ms = sum(ms for name, ms in ranked
+                            if any(m in name.lower() for m in TOPK_MARKS))
+            passes[way] = {
+                "kernel_ms": kernel_ms, "busy": busy, "radix_select_ms": select_ms,
+                "top": ranked[:6]}
+            log(f"phase 16 T, {kind} mix, top-k by {way}: {kernel_ms:.2f} ms of "
+                f"kernels a pass, radix-select kernels {select_ms:.3f} ms, busy {busy:.1%}; "
+                f"all {len(mix)} rows equal phase {4 if kind == 'decoded' else 8}'s")
+        topk_fig[kind] = {"rows": [BATCH, md], "bound_ms": bound, "k": per_k, "mix": passes}
+
+    # W. WAND on the bench corpus
+    or3 = wand_queries(vocab, probs, 3)
+    or2 = wand_queries(vocab, probs, 2, seed=PRUNE_SEED + 1)
+    wand: dict = {}
+    for kind, searcher in searchers.items():
+        sets = {"or3": or3, **({"or2": or2} if kind == "packed" else {})}
+        METRICS.reset()
+        with refuse(kind):
+            wide = searcher.search_batch(or3, k=WIDE_K, prune=False)
+        count_launches()
+
+        def check(pruned, exact, name, k, where):
+            """2-term rows: strict; 3-term rows sum in an unspecified order
+            on the card, so near the k-th score they are held to the wide
+            exhaustive answer (tests/torch_hitcheck.py). Returns the 3-term
+            rows that the strict check would refuse, each with the docs
+            that are in one list only and their scores in the pruned run,
+            the exhaustive run at k and the one at WIDE_K (None where a
+            list lacks the doc; ``exact`` None: no such rows are sought)."""
+            swapped = []
+            for i, p in enumerate(pruned):
+                e = wide[i] if exact is None else exact[i]
+                try:
+                    if name == "or2":
+                        assert_pruned_strict(p, e)
+                    else:
+                        assert_truncated_within_rtol(p, wide[i], k)
+                except AssertionError as err:
+                    raise AssertionError(f"phase 16 {where}, {kind} {name} k={k} row {i}: "
+                                         f"{err}") from None
+                if exact is None:
+                    continue
+                try:
+                    assert_pruned_strict(p, e)
+                except AssertionError:
+                    ps, es, ws = ({sd.doc: sd.score for sd in x.score_docs}
+                                  for x in (p, e, wide[i]))
+                    swapped.append({"row": i, "docs": [
+                        [int(d)] + [None if x.get(d) is None else float(x[d]) for x in (ps, es, ws)]
+                        for d in sorted(set(ps) ^ set(es))]})
+            if swapped:
+                log(f"phase 16 {where}, {kind} {name} k={k}: {len(swapped)} rows differ from the "
+                    f"exhaustive run at the k-th hit (doc, pruned, exhaustive, wide scores): "
+                    f"{json.dumps(swapped[:4])}")
+            return swapped
+
+        for name, rows in sets.items():
+            for k in WAND_KS:
+                fig = {}
+                with refuse(kind):
+                    for prune in (False, True):
+                        METRICS.reset()
+                        served = serve_mix(searcher, rows, BATCH, k, 3, 1.0, 4, prune=prune)
+                        torch.cuda.synchronize()
+                        c = METRICS.snapshot()["counters"]
+                        count_launches()
+                        fig["pruned" if prune else "exhaustive"] = {
+                            "qps": served.qps, "passes": served.reps,
+                            "pruned_blocks": c.get("search.pruned_blocks", 0),
+                            "rerun_rows": c.get("search.prune_rerun_rows", 0)}
+                        if prune:
+                            pruned = served.results
+                        else:
+                            exact = served.results
+                    METRICS.reset()
+                    _ms, busy, _top = profile_fn(
+                        lambda: searcher.search_batch(rows, k=k, prune=True), 1, 1)
+                    count_launches()
+                fig["pruned"]["busy"] = busy
+                fig["order_swaps"] = check(pruned, exact, name, k, "W")
+                lower = sum(p.total_hits < e.total_hits for p, e in zip(pruned, exact))
+                fig["lower_bound_rows"] = lower
+                wand[f"{kind}_{name}_k{k}"] = fig
+                pr, ex = fig["pruned"], fig["exhaustive"]
+                log(f"phase 16 W, {kind} {name} k={k}: {ex['qps']:.1f} QPS exhaustive, "
+                    f"{pr['qps']:.1f} pruned (busy {busy:.1%} of a pruned batch); "
+                    f"search.pruned_blocks {pr['pruned_blocks']}, rows rerun "
+                    f"{pr['rerun_rows']} of {pr['passes'] * len(rows)}, {lower} rows with a "
+                    f"lower-bound total_hits; hits equal")
+        with env("RUCENE_PRUNE_AUTO_MIN_DOCS", str(AUTO_MIN_DOCS)), refuse(kind):
+            METRICS.reset()
+            auto = searcher.search_batch(or3, k=10)
+            n_auto = METRICS.snapshot()["counters"].get("search.auto_prune_batches", 0)
+            count_launches()
+            METRICS.reset()
+            for i in range(0, len(mix), BATCH):
+                searcher.search_batch(mix[i:i + BATCH], k=K)
+            n_mix = METRICS.snapshot()["counters"].get("search.auto_prune_batches", 0)
+            count_launches()
+        if n_auto <= 0 or n_mix:
+            raise AssertionError(f"phase 16 W, {kind}: search.auto_prune_batches {n_auto} on the "
+                                 f"3-term rows at k=10 and {n_mix} on the mix at k={K}")
+        wand[f"{kind}_auto"] = {"or3_k10_batches": n_auto, "mix_k100_batches": n_mix,
+                                "order_swaps": check(auto, None, "or3", 10, "W auto")}
+        log(f"phase 16 W, {kind}: prune=None under RUCENE_PRUNE_AUTO_MIN_DOCS={AUTO_MIN_DOCS}: "
+            f"search.auto_prune_batches {n_auto} on the 3-term rows at k=10, {n_mix} on the "
+            f"mix at k={K}")
+
+    # F. pruning that fires: the skewed corpus in 4 segments
+    t = time.perf_counter()
+    texts = hot_cold_texts(hot_docs)
+    w = IndexWriter(RAMDirectory(), IndexWriterConfig(max_buffered_docs=hot_docs // 4,
+                                                      merge_on_commit=False))
+    for text in texts:
+        d = Document()
+        d.add(TextField("body", text))
+        w.add_document(d)
+    reader = w.get_reader()
+    write_s = time.perf_counter() - t
+    if len(reader.leaves) < 4:
+        raise AssertionError(f"phase 16 F: {len(reader.leaves)} segments, expected 4 or more")
+    from rucene_tpu_torch import BooleanQuery, Term, TermQuery
+
+    rows = [BooleanQuery().should(TermQuery(Term("body", "hot")))
+            .should(TermQuery(Term("body", f"cold{i}"))) for i in range(16)]
+    fires: dict = {}
+    for mode, combine in (("per_leaf", False), ("combined", True)):
+        METRICS.reset()
+        s = IndexSearcher(reader, device=dev, combine_segments=combine)
+        blocks = 0
+        for k in (1, 5):
+            exact = s.search_batch(rows, k=k, prune=False)
+            before = METRICS.snapshot()["counters"].get("search.pruned_blocks", 0)
+            pruned = s.search_batch(rows, k=k, prune=True)
+            blocks += METRICS.snapshot()["counters"].get("search.pruned_blocks", 0) - before
+            for i, (p, e) in enumerate(zip(pruned, exact)):
+                try:
+                    assert_pruned_strict(p, e)
+                except AssertionError as err:
+                    raise AssertionError(f"phase 16 F, {mode} k={k} row {i}: {err}") from None
+        torch.cuda.synchronize()
+        count_launches()
+        if blocks <= 0:
+            raise AssertionError(f"phase 16 F, {mode}: search.pruned_blocks stayed 0 on the card")
+        fires[mode] = blocks
+        log(f"phase 16 F, {mode}: search.pruned_blocks {blocks} over 16 rows at k=1 and 5 on "
+            f"{card}; hits equal prune=False's")
+        del s
+    w.close()
+    log(f"phase 16 F: {hot_docs} docs written into {len(reader.leaves)} segments in "
+        f"{write_s:.1f}s; launches of the phase {launches}")
+    return {"topk": topk_fig, "pruning": {"wand": wand, "fires": fires,
+                                         "hot_docs": hot_docs, "write_s": write_s}}, launches
+
+
 # --- phase 12: NRT on the card (bench.py:519-640 main_nrt, its defaults) -----
 
 NRT_BASE = 200_000  # base docs through the writer
@@ -2778,6 +3158,13 @@ def main() -> int:
         {"decoded": mix_results, "packed": packed_results}, dense_q, card,
     )
 
+    # 16. block-max pruning on both readers: the chunk pass under the dense
+    # top-k, WAND on the bench corpus, and a skewed corpus where it fires
+    p16, p16_launches = serve_pruning(
+        {"decoded": searcher, "packed": packed_searcher}, queries,
+        {"decoded": mix_results, "packed": packed_results}, dense_q, vocab, probs, card, dev,
+    )
+
     # 12. NRT on the card, after releasing phases 1-11's device state
     del searcher, packed_searcher, reader, leaf, gdev, tf_planes, pdev, k2_args, got, want
     del items, item_row, item_enc, lanes, keep
@@ -2800,7 +3187,7 @@ def main() -> int:
          "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"]
          + p11["launches"]["decode_blocks"] + p13["launches"]["decode_blocks"]
          + nrt_launches["decode_blocks"] + p14_launches["decode_blocks"]
-         + p15_launches["decode_blocks"],
+         + p15_launches["decode_blocks"] + p16_launches["decode_blocks"],
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
@@ -2809,7 +3196,7 @@ def main() -> int:
          "launches": k2_launches + p10["launches"]["decode_score_blocks"]
          + p11["launches"]["decode_score_blocks"] + p13["launches"]["decode_score_blocks"]
          + nrt_launches["decode_score_blocks"] + p14_launches["decode_score_blocks"]
-         + p15_launches["decode_score_blocks"],
+         + p15_launches["decode_score_blocks"] + p16_launches["decode_score_blocks"],
          "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
@@ -2817,7 +3204,7 @@ def main() -> int:
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
          "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"]
          + p13["launches"]["combine_lanes"] + nrt_launches["combine_lanes"]
-         + p14_launches["combine_lanes"] + p15_launches["combine_lanes"],
+         + p14_launches["combine_lanes"] + p15_launches["combine_lanes"] + p16_launches["combine_lanes"],
          "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
@@ -2838,7 +3225,8 @@ def main() -> int:
         "host_s": [p11["decoded_host_s"], p11["packed_host_s"]],
         "query_surface": {"decoded": p13["decoded"], "packed": p13["packed"]},
         "nrt": p12, "nrt_launches": nrt_launches, "sharded": p14,
-        "sharded_launches": p14_launches, "drivers": p15, "drivers_launches": p15_launches}))
+        "sharded_launches": p14_launches, "drivers": p15, "drivers_launches": p15_launches,
+        "topk": p16["topk"], "pruning": p16["pruning"], "pruning_launches": p16_launches}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

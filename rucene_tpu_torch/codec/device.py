@@ -112,17 +112,25 @@ def build_device_segment(
 
     return DeviceSegment(
         data=put(data.view(np.int32)),
-        blk_off=put(packed.blk_off),
-        blk_doc_bits=put(packed.blk_doc_bits),
-        blk_freq_bits=put(packed.blk_freq_bits),
-        blk_base=put(packed.blk_base),
-        blk_count=put(packed.blk_count),
+        blk_off=put(one_block_min(packed.blk_off)),
+        blk_doc_bits=put(one_block_min(packed.blk_doc_bits)),
+        blk_freq_bits=put(one_block_min(packed.blk_freq_bits)),
+        blk_base=put(one_block_min(packed.blk_base)),
+        blk_count=put(one_block_min(packed.blk_count)),
         live=put(live_arr, torch.bool),
-        blk_fid=put(blk_fid_host(packed)),
+        blk_fid=put(one_block_min(blk_fid_host(packed))),
         norms=put(norms, torch.uint8),
         positions=put(positions.view(np.int32)),
-        blk_pos_base=put(packed.blk_pos_base),
+        blk_pos_base=put(one_block_min(packed.blk_pos_base)),
     )
+
+
+def one_block_min(table: np.ndarray) -> np.ndarray:
+    """A block table, or one empty block where it has none: a segment
+    without postings (docs holding only points or doc values) still gets
+    a row for the inert item a work list keeps (flat_tables.build_flat_work
+    keeps at least one), whose block count is 0."""
+    return table if len(table) else np.zeros(1, np.int32)
 
 
 def with_live(dev: DeviceSegment, live: np.ndarray) -> DeviceSegment:

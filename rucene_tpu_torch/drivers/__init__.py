@@ -8,6 +8,8 @@ import rucene_tpu and so jax):
   tools/build_bench_cache.py;
 - ``python -m rucene_tpu_torch.drivers.profile_bench``:
   tools/profile_bench.py;
+- ``python -m rucene_tpu_torch.drivers.profile_candidate``:
+  tools/profile_candidate.py (the flat executor's stages, one batch);
 - ``rucene_tpu_torch.drivers.graft_entry``: __graft_entry__.py's
   ``entry`` and ``dryrun_multichip``;
 - ``python -m rucene_tpu_torch.examples.example`` and

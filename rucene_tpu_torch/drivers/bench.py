@@ -43,7 +43,10 @@ passes and 5 s, at most 20 passes.
   ``--seconds``; ``--combine`` serves each reader through its combined
   view. vs_baseline is 0.0, as bench.py prints it.
 
-bench.py's BENCH_PRUNE has no counterpart: WAND is not ported.
+BENCH_PRUNE (bench.py's): ``auto`` (the default, or empty) passes
+prune=None, so the searcher's automatic rule decides; ``1`` forces WAND
+pruning on every batch and adds ``+prune`` to the metric's label; ``0``
+turns it off. It applies to ``main``'s passes and to ``serve_mix``.
 """
 
 from __future__ import annotations
@@ -69,8 +72,17 @@ DEFAULT_CACHE = os.path.join(tempfile.gettempdir(), "rtpu_bench_cache")
 ROUTE_KEYS = (
     "route.device", "route.phrase", "route.synonym", "route.host",
     "search.phrase_host_fallback", "search.phrase_plane_build",
-    "search.phrase_plane_denied", "search.conj_pruned_blocks",
+    "search.phrase_plane_denied", "search.conj_pruned_blocks", "search.pruned_blocks",
+    "search.auto_prune_batches",
 )
+
+
+def bench_prune() -> bool | None:
+    """search_batch's prune= for BENCH_PRUNE (bench.py:288-289): None for
+    ``auto`` (the default) or empty, else True for ``1`` and False
+    otherwise."""
+    value = os.environ.get("BENCH_PRUNE", "auto")
+    return None if value in ("auto", "") else value == "1"
 
 
 def log(msg: str) -> None:
@@ -86,11 +98,11 @@ class Served(NamedTuple):
 
 
 def serve_mix(searcher, queries, batch: int = 256, k: int = 100, depth: int = 3,
-              min_s: float = 5.0, max_reps: int = 20) -> Served:
+              min_s: float = 5.0, max_reps: int = 20, prune: bool | None = None) -> Served:
     """Pipelined passes over ``queries`` on an open searcher: ``depth``
     batches in flight (search_batch_async), so batch N+1's host work
     overlaps batch N's device work; at least 3 passes and ``min_s``
-    seconds, at most ``max_reps`` passes."""
+    seconds, at most ``max_reps`` passes. prune: search_batch's."""
     depth = max(1, depth)
     pending: deque = deque()
     results: list = [None] * len(queries)
@@ -106,7 +118,8 @@ def serve_mix(searcher, queries, batch: int = 256, k: int = 100, depth: int = 3,
     while time.perf_counter() - t0 < min_s or reps < 3:
         for start in range(0, len(queries), batch):
             pending.append((time.perf_counter(), start,
-                            searcher.search_batch_async(queries[start : start + batch], k=k)))
+                            searcher.search_batch_async(queries[start : start + batch], k=k,
+                                                        prune=prune)))
             while len(pending) >= depth:
                 collect_one()
         reps += 1
@@ -233,6 +246,7 @@ def main(args) -> dict:
     from rucene_tpu_torch.util.metrics import METRICS
 
     dev = require_device(args.device)
+    prune = bench_prune()
     n_queries = args.queries or 512
     batch = args.batch or 256
     n_docs = args.docs or wl.default_docs(args.cache, args.corpus)
@@ -246,9 +260,9 @@ def main(args) -> dict:
     log(f"prewarmed {n_planes} phrase planes in {time.time() - tw:.0f}s")
 
     for i in range(0, n_queries, batch):  # warm pass
-        searcher.search_batch(queries[i : i + batch], k=args.k)
+        searcher.search_batch(queries[i : i + batch], k=args.k, prune=prune)
     warm = METRICS.snapshot()
-    served = serve_mix(searcher, queries, batch, args.k, args.pipeline)
+    served = serve_mix(searcher, queries, batch, args.k, args.pipeline, prune=prune)
     counters, timers = timed_delta(METRICS.snapshot(), warm)
     log("routes: " + " ".join(f"{key.split('.', 1)[1]}={counters.get(key, 0)}"
                               for key in ROUTE_KEYS))
@@ -267,7 +281,8 @@ def main(args) -> dict:
         f"{served.wall_s:.2f}s = {bytes_per_s / 1e9:.1f} GB/s ({share})")
     result = {
         "metric": f"BM25 top-{args.k} QPS, {n_docs} docs, mixed term/bool/phrase "
-        f"batch={batch}, {args.reader} reader on {device_name(dev)}",
+        f"batch={batch}, {args.reader} reader on {device_name(dev)}"
+        + (" +prune" if prune else ""),
         "value": round(served.qps, 1),
         "unit": "queries/sec/chip",
         "vs_baseline": round(served.qps / base_qps, 2),

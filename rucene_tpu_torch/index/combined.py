@@ -35,11 +35,14 @@ its own device (ROADMAP.md §3). A miss compacts the field numbering to the
 fields some current leaf has before it extends it, so ``field_gid`` does
 not grow across refreshes.
 
+The view keeps ``blk_max_freq`` on the host, the leaves' block maxima in
+the view's block order: the block-max bounds of WAND pruning over the view
+(the searcher's _run_pruned_view) read it; it needs no device copy.
+
 Left out, as TPU-only machinery: ``bucket_sizes`` (pow2 doc, block and
 word axes that let refreshes reuse compiled XLA programs), the +2048-word
-pad, ``as_numpy`` (the stacking of shards to one shape) and the host
-copies that fed WAND pruning and the static has_ef program
-(``blk_max_freq``, ``blk_dbits_host``).
+pad, ``as_numpy`` (the stacking of shards to one shape) and the host copy
+that fed the static has_ef program (``blk_dbits_host``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from rucene_tpu_torch.codec.device import (
     add_decoded_planes,
     blk_fid_host,
     decoded_policy,
+    one_block_min,
 )
 from rucene_tpu_torch.util import round_up
 from rucene_tpu_torch.util.metrics import METRICS
@@ -72,6 +76,7 @@ class CombinedView:
     n_blocks: int
     blk_first_host: np.ndarray  # i64[NB] first doc per block, view doc space
     blk_last_host: np.ndarray  # i64[NB] last doc per block, view doc space
+    blk_max_freq: np.ndarray  # i32[NB] max term freq per block (WAND bounds)
     pos_word_bases: np.ndarray | None = None  # i64[L] position-word offset per leaf
     # filter planes in the view's doc space ({key: bool[md] tensor}; a
     # live-mask swap shares them: liveness is applied by the executors)
@@ -175,10 +180,11 @@ def build_combined_view(
     doc_bases = np.zeros(n, np.int64)
     blk_bases = np.zeros(n, np.int64)
     pos_word_bases = np.zeros(n, np.int64)
-    data_p, off_p, dbits_p, fbits_p, base_p, cnt_p, first_p, last_p = ([] for _ in range(8))
+    data_p, off_p, dbits_p, fbits_p, base_p, cnt_p, first_p, last_p, bmf_p = (
+        [] for _ in range(9)
+    )
     pos_p, posb_p = [], []
     word_base = doc_base = nb_total = pos_base = 0
-    max_freq = 0
     for li, leaf in enumerate(leaves):
         p = leaf.packed
         doc_bases[li] = doc_base
@@ -190,14 +196,13 @@ def build_combined_view(
         fbits_p.append(p.blk_freq_bits)
         base_p.append(p.blk_base.astype(np.int64) + doc_base)
         cnt_p.append(p.blk_count)
+        bmf_p.append(p.blk_max_freq)
         first_p.append(p.blk_first_doc.astype(np.int64) + doc_base)
         last_p.append(p.blk_last_doc.astype(np.int64) + doc_base)
         posb_p.append(p.blk_pos_base)
         if with_positions:
             pos_p.append(p.positions)
             pos_base += len(p.positions)
-        if p.num_blocks:
-            max_freq = max(max_freq, int(p.blk_max_freq.max()))
         word_base += len(p.data)
         doc_base += round_up(max(p.max_doc, 1), DOC_AXIS_MULTIPLE)
         nb_total += p.num_blocks
@@ -227,18 +232,19 @@ def build_combined_view(
 
     dev = DeviceSegment(
         data=put(data.view(np.int32)),
-        blk_off=put(blk_off.astype(np.int32)),
-        blk_doc_bits=put(cat(dbits_p, np.int32)),
-        blk_freq_bits=put(cat(fbits_p, np.int32)),
-        blk_base=put(cat(base_p, np.int32)),
-        blk_count=put(cat(cnt_p, np.int32)),
+        blk_off=put(one_block_min(blk_off.astype(np.int32))),
+        blk_doc_bits=put(one_block_min(cat(dbits_p, np.int32))),
+        blk_freq_bits=put(one_block_min(cat(fbits_p, np.int32))),
+        blk_base=put(one_block_min(cat(base_p, np.int32))),
+        blk_count=put(one_block_min(cat(cnt_p, np.int32))),
         live=put(live, torch.bool),
-        blk_fid=put(combined_blk_fid(leaves, field_gid)),
+        blk_fid=put(one_block_min(combined_blk_fid(leaves, field_gid))),
         norms=put(norms, torch.uint8),
         positions=put(positions.view(np.int32)),
-        blk_pos_base=put(cat(posb_p, np.int32)),
+        blk_pos_base=put(one_block_min(cat(posb_p, np.int32))),
     )
-    decoded, fdt = decoded_policy(nb_total, max_freq)
+    blk_max_freq = cat(bmf_p, np.int32)
+    decoded, fdt = decoded_policy(nb_total, int(blk_max_freq.max()) if nb_total else 0)
     if decoded and nb_total:
         dev = add_decoded_planes(dev, freq_dtype=fdt)
     METRICS.incr("reader.combined_builds")
@@ -251,6 +257,7 @@ def build_combined_view(
         n_blocks=nb_total,
         blk_first_host=cat(first_p, np.int64),
         blk_last_host=cat(last_p, np.int64),
+        blk_max_freq=blk_max_freq,
         pos_word_bases=pos_word_bases if with_positions else None,
     )
 

@@ -32,6 +32,9 @@ tables; on a decoded leaf they are row gathers of the resident planes
 plain chunk loop. Left out: ``MAX_BUILD_ITEMS`` and its slicing in the
 caller (a TPU worker fault), and the pow2 work padding.
 
+``phrase_plane_search`` is the reference's single-row function, a one-row
+call of ``phrase_plane_search_many``.
+
 Unordered span-near rows (``span_unordered_plane_search_many``) use the
 same planes: per window width, an AND of each term's smeared plane with
 witness bits at both ends, popcounts weighted by the sloppy factor.
@@ -44,7 +47,7 @@ import torch
 
 from rucene_tpu_torch.ops import cuda_decode
 from rucene_tpu_torch.ops.decode import INVALID_DOC
-from rucene_tpu_torch.ops.topk import topk_score_doc
+from rucene_tpu_torch.ops.topk import DOC_PAD, topk_score_doc
 from rucene_tpu_torch.util.packing import BLOCK_SIZE
 
 PMAX = 128  # positions per doc covered by a full-width plane (4 words)
@@ -210,6 +213,35 @@ def phrase_plane_search_many(
     hits = match.sum(1).to(torch.int32)
     ov_count = needs_host.sum(1).to(torch.int32)
     return top_scores, top_docs, hits, ov_count
+
+
+def phrase_plane_search(
+    planes: tuple,  # n_terms x i32[md, words]
+    overflows: tuple,  # n_terms x bool[md]
+    live: torch.Tensor,  # bool[md]
+    denom_row: torch.Tensor,  # f32[md] the field's BM25 denominator a doc
+    weight,  # f32 boost * sum(idf) * (k1 + 1)
+    k: int,
+    n_terms: int,
+    ov_cap: int = 1024,
+) -> tuple:
+    """One exact phrase row from its planes (the reference's single-row
+    function): a one-row call of phrase_plane_search_many. Returns
+    (scores f32[k], docs i32[k], hits i32, ov_docs i32[min(ov_cap, md)],
+    ov_count i32): ov_docs lists, ascending and padded with 2^31 - 1, the
+    docs whose pf is not exact (some term overflowed there); ov_count >
+    ov_cap means the caller must re-verify the whole row."""
+    w = torch.as_tensor(weight, dtype=torch.float32, device=live.device).reshape(1)
+    scores, docs, hits, ov_count = phrase_plane_search_many(
+        planes, overflows, live, (denom_row,), w, k, n_terms
+    )
+    cap = min(ov_cap, live.shape[0])
+    ov_docs = torch.full((cap,), DOC_PAD, dtype=torch.int32, device=live.device)
+    if int(ov_count[0]):
+        needs_host = phrase_freqs(planes, overflows, live, n_terms)[1][0]
+        idx = needs_host.nonzero().flatten()[:cap]
+        ov_docs[: idx.numel()] = idx.to(torch.int32)
+    return scores[0], docs[0], hits[0], ov_docs, ov_count[0]
 
 
 def _span_unordered_pf(planes_row, n_terms: int, slop: int) -> torch.Tensor:

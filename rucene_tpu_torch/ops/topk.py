@@ -9,8 +9,22 @@ int64 key: the score's order-preserving int32 bits in the high half,
 keys are equal, and ``torch.topk`` over the keys is exact by
 construction. The reference's f32 / i32 ``_distinct_keys`` and its
 value-then-selection passes work around TPU top-k tie faults and have no
-counterpart. ``exact_top_k``'s block-max candidate pass is not ported
-(ROADMAP.md §1 item 1): ``topk_score_doc`` serves its callers.
+counterpart.
+
+Every dense top-k goes through ``exact_top_k``, the reference's block-max
+candidate pass: each row's 256-doc chunk maxima pick the top-k chunks by
+(max desc, chunk asc), and the exact selection runs over those k * 256
+columns only (128-doc chunks when k > 128), plus the ``n % chunk`` tail.
+The candidate set holds the true top-k: were a winner w in a chunk not
+picked, each of the k picked chunks would hold a hit beating w (a higher
+score, or an equal one at a lower column, since a picked chunk of equal
+max lies before w's), k hits in all. Each candidate is keyed with its
+original column, so one ``torch.topk`` over the candidates is the answer
+and needs no index map. The engagement rules are the reference's, so
+both packages take the same branch at the same shape: rows of
+``_FAST_MIN_N`` columns or more, when the k chunks cover under half the
+row. The reference's ``RUCENE_FAST_TOPK=0`` switch, an A/B knob with
+the same results, has no counterpart.
 """
 
 from __future__ import annotations
@@ -18,6 +32,8 @@ from __future__ import annotations
 import torch
 
 DOC_PAD = 2**31 - 1
+_FAST_MIN_N = 32_768  # the chunk pass engages from this row width
+_CHUNK = 256  # docs a chunk (128 when k > 128)
 
 
 def _score_order_bits(scores: torch.Tensor) -> torch.Tensor:
@@ -38,7 +54,7 @@ def topk_score_doc(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Te
 
     Returns (top_scores f32[B,k], top_docs i32[B,k]); slots beyond the number
     of matches hold (-inf, 2^31-1)."""
-    vals, idx = stable_top_k(scores, k)
+    vals, idx = exact_top_k(scores, k)
     return _pad_to_k(vals, torch.where(vals > -torch.inf, idx, DOC_PAD), k)
 
 
@@ -49,6 +65,42 @@ def stable_top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tens
     cols = torch.arange(n, device=scores.device)
     _, idx = torch.topk(score_doc_keys(scores, cols), min(k, n), dim=1)
     return torch.gather(scores, 1, idx), idx.to(torch.int32)
+
+
+def _chunk(kk: int) -> int:
+    return _CHUNK if kk <= 128 else 128
+
+
+def chunk_pass_engages(n: int, k: int) -> bool:
+    """Whether exact_top_k takes its chunk pass over rows of n columns at
+    k (the reference's rules): n >= _FAST_MIN_N and the k chunks cover
+    under half the row."""
+    kk = min(k, n)
+    chunk = _chunk(kk)
+    return not (n < _FAST_MIN_N or kk >= n // chunk or kk * chunk * 2 >= n)
+
+
+def exact_top_k(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """stable_top_k through the block-max chunk pass on wide rows (module
+    docstring); bit-equal to stable_top_k at every shape. Returns (vals
+    f32[B, kk], idx i32[B, kk]) with kk = min(k, N)."""
+    b, n = scores.shape
+    kk = min(k, n)
+    if not chunk_pass_engages(n, kk):
+        return stable_top_k(scores, kk)
+    chunk = _chunk(kk)
+    c = n // chunk
+    dvc = scores.device
+    cmax = scores[:, : c * chunk].reshape(b, c, chunk).amax(dim=2)  # [B, C]
+    cj = torch.arange(c, device=dvc).expand(b, c)
+    _, cidx = torch.topk(score_doc_keys(cmax, cj), kk, dim=1)  # (max desc, chunk asc)
+    cidx = torch.sort(cidx, dim=1).values
+    cols = (cidx[:, :, None] * chunk + torch.arange(chunk, device=dvc)).reshape(b, kk * chunk)
+    if n > c * chunk:  # the tail pseudo-chunk
+        cols = torch.cat([cols, torch.arange(c * chunk, n, device=dvc).expand(b, n - c * chunk)], 1)
+    cand = torch.gather(scores, 1, cols)
+    _, j = torch.topk(score_doc_keys(cand, cols), kk, dim=1)
+    return torch.gather(cand, 1, j), torch.gather(cols, 1, j).to(torch.int32)
 
 
 def _pad_to_k(vals: torch.Tensor, docs: torch.Tensor, k: int):

@@ -84,7 +84,26 @@ not a timed batch (one call cannot be interrupted between leaves, so it
 keeps the per-leaf loop), and not the pair or tf-plane routes, which stay
 per leaf, as do the phrase, mixed, synonym, span and host paths.
 
-Left out of the reference: WAND pruning and the A/B knobs RUCENE_PLANE_TERMS,
+``search_batch(prune=)`` is the reference's block-max WAND
+(_run_pruned_view): pass 1 scores each pure disjunction's highest-bound
+blocks, up to max(4k, 512) docs a row; the k-th score is a threshold t; a
+deferred block whose bound (its own block-max score plus the other
+clauses' best blocks, rounded up: _wand_bound) reaches t makes its row
+rerun in full in pass 2.
+``total_hits`` of a row that did not rerun is a lower bound, as Lucene's
+WAND reports it. prune=True forces it (no single, pair or plane route),
+False turns it off, and None (the default) engages it per sub-batch by
+_auto_prune_decision: 2^22 docs or more (RUCENE_PRUNE_AUTO_MIN_DOCS), k
+<= 32, every row a pure disjunction of two or more term clauses, and not
+the pair route; RUCENE_PRUNE=0/1 forces the rule. Rows with ranges or
+score-combine overrides never prune. Counters: ``search.pruned_blocks``
+(deferred blocks whose bound fell below the threshold),
+``search.prune_rerun_rows`` (rows pass 2 reran) and
+``search.auto_prune_batches``.
+search_batch_async queues pass 1; collect() reads its scores (one sync)
+and queues pass 2 for the affected rows only.
+
+Left out of the reference: the A/B knobs RUCENE_PLANE_TERMS,
 RUCENE_PLANES_ROUTE_DIV, RUCENE_PAIR_PROBE and RUCENE_PAIR_TOPK (the pair
 route's probe variant is picked from the batch: one field for both
 clauses of every row, or not).
@@ -241,14 +260,18 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         return self.search(query, 1).total_hits
 
     def search_batch(
-        self, queries: list[Query], k: int = 10, timeout_s: float | None = None
+        self, queries: list[Query], k: int = 10, timeout_s: float | None = None,
+        prune: bool | None = None,
     ) -> list[TopDocs]:
         """timeout_s: a wall-clock budget; leaves not reached in time are
-        skipped and ``timed_out`` is set (partial results)."""
-        return self.search_batch_async(queries, k, timeout_s=timeout_s)()
+        skipped and ``timed_out`` is set (partial results). prune: block-max
+        WAND for pure disjunctions, None engaging it by the automatic rule
+        (module docstring); pruned rows' total_hits are lower bounds."""
+        return self.search_batch_async(queries, k, timeout_s=timeout_s, prune=prune)()
 
     def search_batch_async(
-        self, queries: list[Query], k: int = 10, timeout_s: float | None = None
+        self, queries: list[Query], k: int = 10, timeout_s: float | None = None,
+        prune: bool | None = None,
     ):
         """Pipelined entry point: queues every device operation of this batch
         now and returns a collect() closure producing the TopDocs. A serving
@@ -302,7 +325,8 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         if device_idx:
             with trace("search.device.dispatch"):
                 finish = self._search_device(
-                    [plans[i].rq for i in device_idx], k, [plans[i] for i in device_idx]
+                    [plans[i].rq for i in device_idx], k, [plans[i] for i in device_idx],
+                    prune=prune,
                 )
             paths.append((device_idx, finish, "search.device"))
         if phrase_idx:
@@ -449,8 +473,35 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             and all(wrow[j] > 0 for j in range(len(rq.clauses)))
         )
 
-    def _search_device(self, rqs: list[RewrittenQuery], k: int, plans, _stats=None):
-        """Queue one executor call per leaf; return finish() -> TopDocs."""
+    def _auto_prune_decision(self, rqs, k: int) -> bool:
+        """The reference's rule for prune=None: every row a pure positive
+        disjunction of two or more plain term clauses, at least
+        RUCENE_PRUNE_AUTO_MIN_DOCS docs (2^22) and k <= 32;
+        RUCENE_PRUNE=0/1 forces it."""
+        env = os.environ.get("RUCENE_PRUNE")
+        if env in ("0", "1"):
+            return env == "1"
+        total = sum(lf.max_doc for lf in self.reader.leaves)
+        min_docs = int(os.environ.get("RUCENE_PRUNE_AUTO_MIN_DOCS", 1 << 22))
+        if total < min_docs or k > 32:
+            return False
+        return all(
+            rq.n_required == 0
+            and rq.effective_min_should() <= 1
+            and rq.plain
+            and not rq.match_all
+            and not rq.ranges
+            and len(rq.clauses) >= 2
+            and all(c.occur == Occur.SHOULD for c in rq.clauses)
+            for rq in rqs
+        )
+
+    def _search_device(self, rqs: list[RewrittenQuery], k: int, plans, _stats=None,
+                       prune: bool | None = None):
+        """Queue one executor call per leaf; return finish() -> TopDocs.
+        prune routes as the reference's does: off for a batch with
+        score-combine overrides or ranges, no single, pair or plane route
+        under prune=True, and None decided per sub-batch after the split."""
         sim = self.similarity
         doc_freqs, stats = _stats if _stats is not None else self._gather_stats(rqs, plans)
         b = len(rqs)
@@ -458,6 +509,9 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         weight, occur, n_required, min_should, match_all_rows, boosts = build_clause_tables(
             rqs, sim, doc_freqs, stats, b, t, plans=plans
         )
+        plain = all(rq.plain for rq in rqs)
+        if not plain:
+            prune = False  # WAND bounds do not model the score-combine overrides
         pure_rows = [self._pure_row(rq, weight[i]) for i, rq in enumerate(rqs)]
         # total_hits of a single-term row is its doc_freq: exact only
         # when no leaf has deletes
@@ -465,17 +519,21 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         single_rows = [
             p and no_deletes and len(rq.clauses) == 1 for p, rq in zip(pure_rows, rqs)
         ]
-        pair_rows = self._pair_rows(rqs, weight)
+        pair_rows = self._pair_rows(rqs, weight) if prune is not True else [False] * b
         # RowExtras exist only on the flat executor: a batch holding a
         # dismax, constant-score or boosting row takes no tf planes
-        plain = all(rq.plain for rq in rqs)
-        plane_rows = self._plane_rows(rqs, plans, single_rows) if plain else [False] * b
+        plane_rows = (
+            self._plane_rows(rqs, plans, single_rows) if plain and prune is not True
+            else [False] * b
+        )
+        if any(rq.ranges for rq in rqs):
+            prune = False  # nor the filter planes' constant scores
 
         # large corpora: split by row class (the reference's classes 0-4)
         # so single-term rows skip the combine, pure disjunctions skip the
         # clause counts, and pair and plane rows take their own routes
         cls = [
-            4 if pl else 0 if s else 3 if pr else 1 if p else 2
+            4 if pl else 0 if s and not prune else 3 if pr else 1 if p else 2
             for s, p, pr, pl in zip(single_rows, pure_rows, pair_rows, plane_rows)
         ]
         if (
@@ -487,7 +545,7 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             starters = [
                 (idxs, self._search_device(
                     [rqs[i] for i in idxs], k, [plans[i] for i in idxs],
-                    _stats=(doc_freqs, stats),
+                    _stats=(doc_freqs, stats), prune=prune,
                 ))
                 for idxs in groups
             ]
@@ -518,9 +576,13 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         pure = all(pure_rows)
         # a match-all row has no clause, so it is never single (nor pure,
         # pair or plane): a batch holding one takes the flat executor
-        single = all(single_rows)
+        single = all(single_rows) and not prune
         plane = all(plane_rows)
         pair2 = all(pair_rows) and not single and not plane
+        if prune is None:
+            prune = (not pair2) and self._auto_prune_decision(rqs, k)
+            if prune:
+                METRICS.incr("search.auto_prune_batches")
         if not (plane or pair2):  # those two count per leaf call
             METRICS.incr("route.single" if single else "route.flat", b)
         extras, with_dismax = (None, False) if plain else _row_extras(rqs, self.device)
@@ -532,7 +594,7 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             return self._search_device_combined(
                 rqs, k, stats, weight, occur, n_required, min_should, match_all_rows,
                 boosts_t, t, pure, single, filter_tables, strategy, n_required_terms,
-                extras, with_dismax,
+                extras, with_dismax, prune,
             )
         pending = []  # (doc_base, result, match-all result or None)
         for leaf in self.reader.leaves:
@@ -575,6 +637,11 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
                 res = self._run_single_view(
                     leaf.device, work, lane_cnt, cache, n_required, min_should, k
                 )
+            elif prune:
+                res = self._run_pruned_view(
+                    leaf.device, _blk_ranges(leaf), leaf.packed.blk_max_freq, work, cache,
+                    n_required, min_should, k, pure,
+                )
             else:
                 filters = self._leaf_filters(leaf, *filter_tables) if filter_tables else None
                 res = self._run_work(
@@ -587,7 +654,7 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         def finish() -> list[TopDocs]:
             per_query_leaf: list[list] = [[] for _ in range(b)]
             for doc_base, res, ma in pending:
-                s, d, h = (x.cpu().numpy() for x in res)
+                s, d, h = _host_result(res)
                 if ma is not None:
                     ms, mdoc, mh = (x.cpu().numpy() for x in ma)
                     s = np.where(match_all_rows[:, None], ms, s)
@@ -769,10 +836,81 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             with_dismax=with_dismax, filters=filters,
         )
 
+    def _run_pruned_view(self, dev, blk_ranges, blk_max_freq, work, cache, n_required,
+                         min_should, k, pure):
+        """Block-max WAND, two passes, over a leaf's or a combined view's
+        work list (the reference's host numpy, save that a segment without
+        blocks bounds nothing, where the reference's indexing raises, and
+        that the bound is rounded up, _wand_bound). Pass 1 scores each
+        prunable row's highest-bound items until max(4k, 512) docs;
+        its k-th score t is a lower bound of the true k-th. A deferred item
+        can hold a top-k doc only if its bound (the item's block-max score
+        plus every other clause's best) is >= t (ties kept); rows with such
+        an item rerun in full. Returns the executor's tensors when nothing
+        is deferred, else a callable that reads pass 1 (one sync), queues
+        pass 2 for the affected rows and returns host (scores, docs,
+        hits); total_hits of an unaffected row is a lower bound."""
+        wi_block, wi_row, wi_weight, wi_fid, wi_enc, wi_valid, n_items, wi_tslot = work
+        w = len(wi_block)
+        b_rows = len(n_required)
+        n_blocks = len(blk_max_freq)
+        # upper bound per item: w * bmf / (bmf + the field's least cache value)
+        bmf = blk_max_freq[np.clip(wi_block, 0, max(n_blocks - 1, 0))].astype(
+            np.float32
+        ) if n_blocks else np.zeros(w, np.float32)
+        cval_min = cache.min(axis=1)[np.clip(wi_fid, 0, cache.shape[0] - 1)]
+        with np.errstate(invalid="ignore"):
+            ub = np.where(wi_valid, wi_weight * bmf / (bmf + cval_min), -np.inf)
+
+        bound = _wand_bound(ub, wi_row, wi_tslot, wi_valid, b_rows)
+
+        # prunable rows: pure disjunction, min_should <= 1
+        prunable_rows = (n_required == 0) & (min_should <= 1)
+        item_prunable = prunable_rows[wi_row] & wi_valid & (wi_enc == ENC_SHOULD)
+
+        # pass-1 selection: per row, highest-ub items until >= 4k docs seen
+        order = np.lexsort((-ub, wi_row))  # by row, ub desc
+        cnt_sorted = np.where(item_prunable[order], 128, 0)
+        row_sorted = wi_row[order]
+        csum = np.cumsum(cnt_sorted)
+        row_start = np.searchsorted(row_sorted, row_sorted, side="left")
+        within = csum - csum[row_start] + cnt_sorted[row_start]
+        keep_sorted = within <= max(4 * k, 512)
+        pass1 = np.ones(w, dtype=bool)
+        pass1[order[item_prunable[order] & ~keep_sorted]] = False  # deferred items
+        pass1 &= wi_valid
+
+        if pass1.sum() == wi_valid.sum():  # nothing to prune
+            return self._run_work(dev, blk_ranges, work[:6], cache, n_required, min_should, k,
+                                  pure)
+        res1 = self._run_work(dev, blk_ranges, _subset_work(work, pass1), cache, n_required,
+                              min_should, k, pure)
+
+        def finish():
+            s1, d1, h1 = _host_result(res1)
+            t = s1[:, k - 1]
+            deferred = (~pass1) & wi_valid
+            survivors = deferred & (bound >= t[wi_row])
+            affected = np.zeros(b_rows, dtype=bool)
+            affected[wi_row[survivors]] = True
+            METRICS.incr("search.pruned_blocks", int((deferred & ~survivors).sum()))
+            METRICS.incr("search.prune_rerun_rows", int(affected.sum()))
+            if not affected.any():
+                return s1, d1, h1
+            # the affected rows rerun with their full work lists
+            sub2 = _subset_work(work, wi_valid & affected[wi_row])
+            s2, d2, h2 = _host_result(self._run_work(
+                dev, blk_ranges, sub2, cache, n_required, min_should, k, pure
+            ))
+            return (np.where(affected[:, None], s2, s1), np.where(affected[:, None], d2, d1),
+                    np.where(affected, h2, h1))
+
+        return finish
+
     def _search_device_combined(
         self, rqs, k, stats, weight, occur, n_required, min_should, match_all_rows,
         boosts_t, t, pure, single, filter_tables, strategy, n_required_terms, extras,
-        with_dismax,
+        with_dismax, prune,
     ):
         """Every leaf in ONE executor call over the combined view: each
         (row, clause) takes one block range per leaf (build_combined_tables);
@@ -810,6 +948,10 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
                     if rec is not None:
                         lane_cnt[i] += rec.doc_freq
             res = self._run_single_view(dev, work, lane_cnt, cache, n_required, min_should, k)
+        elif prune:
+            res = self._run_pruned_view(
+                dev, blk_ranges, view.blk_max_freq, work, cache, n_required, min_should, k, pure,
+            )
         else:
             filters = (
                 view_filters(view, leaves, *filter_tables) if filter_tables else None
@@ -821,7 +963,7 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         ma = execute_match_all(dev, boosts_t, k) if boosts_t is not None else None
 
         def finish() -> list[TopDocs]:
-            s, d, h = (x.cpu().numpy() for x in res)
+            s, d, h = _host_result(res)
             if ma is not None:
                 ms, mdoc, mh = (x.cpu().numpy() for x in ma)
                 s = np.where(match_all_rows[:, None], ms, s)
@@ -907,6 +1049,49 @@ def _row_extras(rqs, device) -> tuple[RowExtras, bool]:
         const_val=_put(const_val, device, np.float32), demote=_put(demote, device, np.float32),
     )
     return extras, bool((dm_tie >= 0).any())
+
+
+def _wand_bound(ub, wi_row, wi_tslot, wi_valid, b_rows):
+    """f32[W]: the most a doc in item i can score, its item's upper bound
+    ub[i] plus every other clause's best-block bound, rounded up so that
+    no f32 sum of the row's clause scores, in any order, exceeds it. The
+    reference sums in f32 and subtracts the item's clause back out
+    (``row_sum - clause_max``), which can round below the true sum of the
+    other clauses: a doc that ties the pass-1 k-th score at a lower doc id
+    is then pruned (ROADMAP.md §3). Here the sums are taken in f64 (exact
+    to far below an f32 ULP for the few clauses of a row) and widened by
+    one f32 rounding a clause before the cast, then one ULP up."""
+    t_slots = int(wi_tslot.max()) + 1 if len(ub) else 1
+    clause_maxub = np.full((b_rows, t_slots), -np.inf, np.float32)
+    np.maximum.at(clause_maxub, (wi_row, wi_tslot), np.where(wi_valid, ub, -np.inf))
+    finite = np.isfinite(clause_maxub)
+    clause_maxub_pos = np.where(finite, clause_maxub, 0.0).astype(np.float64)
+    others = clause_maxub_pos.sum(axis=1)[wi_row] - clause_maxub_pos[wi_row, wi_tslot]
+    n_terms = finite.sum(axis=1)[wi_row]
+    with np.errstate(invalid="ignore"):
+        wide = (ub.astype(np.float64) + others) * (1.0 + n_terms * 2.0**-23)
+    return np.nextafter(wide.astype(np.float32), np.float32(np.inf))
+
+
+def _subset_work(work, mask):
+    """The masked items of a work list, as its first six arrays (at least
+    one item: an invalid one when the mask is empty)."""
+    idx = np.nonzero(mask)[0]
+    n = len(idx)
+    w = max(n, 1)
+    out = tuple(np.zeros(w, a.dtype) for a in work[:5]) + (np.zeros(w, bool),)
+    for o, a in zip(out[:5], work[:5]):
+        o[:n] = a[idx]
+    out[5][:n] = True
+    return out
+
+
+def _host_result(res):
+    """(scores, docs, hits) on the host: a pruned call's finish() result,
+    or an executor's tensors."""
+    if callable(res):
+        return res()
+    return tuple(x.cpu().numpy() for x in res)
 
 
 def _blk_ranges(leaf) -> tuple[np.ndarray, np.ndarray]:

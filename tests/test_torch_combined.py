@@ -8,8 +8,8 @@ strict rules over complete hit lists, scores within RTOL 4e-7), on decoded
 and packed views, with deletes, ranges and match-all rows, across an NRT
 refresh. Then the view cache: reuse, a live-plane swap on deletes, no
 stale mask served through a recycled id(), no view served to a reader on
-another device, and field_gid compaction. The reference's WAND test is
-not taken: pruning is not ported.
+another device, and field_gid compaction. The reference's WAND test over
+the view (tests/test_combined_view.py:76) is in tests/test_torch_prune.py.
 """
 
 import gc

@@ -9,7 +9,11 @@ examples) on the CPU, against the repo's drivers, which import rucene_tpu.
   TopDocs on an index carried across with packed_from_reference equal the
   reference's (tests/torch_hitcheck.py), decoded and packed; ``--nrt``
   ingests while it serves;
+- BENCH_PRUNE parses as bench.py's, reaches search_batch(prune=) in
+  ``main`` and ``serve_mix``, and labels the metric ``+prune``;
 - drivers.profile_bench captures and analyses two batches;
+- drivers.profile_candidate prints every stage on the CPU, its top-k stage
+  taking the block-max chunk pass and equal to stable_top_k;
 - both examples print the reference's lines;
 - graft_entry.entry's top-10 equals the reference executor's on
   __graft_entry__.entry's segment and rows (with has_ef, as the
@@ -34,7 +38,13 @@ from rucene_tpu.index.reader import IndexReader as RefReader
 from rucene_tpu.index.reader import SegmentSnapshot as RefSnapshot
 
 from rucene_tpu_torch.codec.postings import packed_from_reference
-from rucene_tpu_torch.drivers import bench, build_bench_cache, graft_entry, profile_bench
+from rucene_tpu_torch.drivers import (
+    bench,
+    build_bench_cache,
+    graft_entry,
+    profile_bench,
+    profile_candidate,
+)
 from rucene_tpu_torch.drivers import workload as wl
 from rucene_tpu_torch.examples import stable_lines
 from tests.torch_hitcheck import assert_batches_strict
@@ -148,6 +158,52 @@ def test_bench_main_prints_bench_keys(corpus, tmp_path, capsys):
     assert "batch latency p50" in err and "baseline(single-core numpy engine)" in err
 
 
+@pytest.mark.parametrize("value,want", [
+    (None, None), ("auto", None), ("", None), ("1", True), ("0", False), ("yes", False),
+])
+def test_bench_prune_parses_as_bench_py(monkeypatch, value, want):
+    """bench.py:288-289: ``auto`` or empty -> prune=None, else ``1``."""
+    if value is None:
+        monkeypatch.delenv("BENCH_PRUNE", raising=False)
+    else:
+        monkeypatch.setenv("BENCH_PRUNE", value)
+    assert bench.bench_prune() is want
+    raw = "auto" if value is None else value
+    assert (None if raw in ("auto", "") else raw == "1") is want  # bench.py's own lines
+
+
+def test_bench_prune_reaches_the_searcher(corpus, tmp_path, monkeypatch, capsys):
+    """BENCH_PRUNE=1: every search_batch(_async) of ``main`` gets
+    prune=True, and the metric says ``+prune``; serve_mix passes its
+    prune= on."""
+    texts, vocab, probs, ref_packed = corpus
+    ref_bench.cache_segment(str(tmp_path), f"bench-zipf-{N_DOCS}", ref_packed)
+    seen = []
+    from rucene_tpu_torch.search import searcher as searcher_mod
+
+    orig = searcher_mod.IndexSearcher.search_batch_async
+
+    def spy(self, queries, k=10, timeout_s=None, prune=None):
+        seen.append(prune)
+        return orig(self, queries, k, timeout_s=timeout_s, prune=prune)
+
+    monkeypatch.setattr(searcher_mod.IndexSearcher, "search_batch_async", spy)
+    monkeypatch.setenv("BENCH_PRUNE", "1")
+    args = bench.parse_args(["--device", "cpu", "--queries", "64", "--batch", "32",
+                             "--cache", str(tmp_path), "--baseline", "numpy"])
+    line = bench.main(args)
+    assert line["metric"].endswith(" +prune") and seen and all(p is True for p in seen)
+    del seen[:]
+    monkeypatch.setenv("BENCH_PRUNE", "auto")
+    assert "+prune" not in bench.main(args)["metric"] and set(seen) == {None}
+    capsys.readouterr()
+    searcher = bench.open_searcher(packed_from_reference(ref_packed), "cpu", "packed")
+    del seen[:]
+    queries = wl.build_queries(32, vocab, probs)
+    served = bench.serve_mix(searcher, queries, batch=16, k=10, min_s=0.0, prune=False)
+    assert set(seen) == {False} and served.reps == 3
+
+
 def test_nrt_driver_ingests_while_serving(capsys):
     args = bench.parse_args(["--nrt", "--device", "cpu", "--docs", "2000", "--seconds", "2"])
     result = bench.main_nrt(args)
@@ -170,6 +226,21 @@ def test_profile_bench_on_the_cpu(tmp_path, capsys):
     again = profile_bench.main(["--analyze-only", "--log-dir", log_dir])
     assert again["spans"] == out["spans"] and again["ops"] == out["ops"]
     assert "-- host spans" in capsys.readouterr().out
+
+
+def test_profile_candidate_on_the_cpu(capsys):
+    """Every stage of the reference's tools/profile_candidate.py prints,
+    in its order; at 40,000 docs and k=10 the rows are wide enough for
+    the chunk pass (32,768 columns or more), whose answer equals
+    stable_top_k's."""
+    out = profile_candidate.main(["--device", "cpu", "--docs", "40000", "--cache", "",
+                                  "--batch", "64", "--k", "10"])
+    printed = capsys.readouterr().out
+    stages = ["decode+score", "decode+scatter_score", "decode+scatter_counts",
+              "topk_dense[B,md]", "torch.topk[B,md]", "full_dense", "full_candidate"]
+    assert [ln.split()[0] for ln in printed.splitlines() if ln.split()[0] in stages] == stages
+    assert all(out[s] > 0 for s in stages)
+    assert out["chunk_pass"] is True and out["topk_equal"] is True
 
 
 # --- the examples -------------------------------------------------------------
@@ -250,6 +321,7 @@ def test_dryrun_multichip_over_gloo(capsys):
 @pytest.mark.parametrize("module", [
     "rucene_tpu_torch.drivers.bench",
     "rucene_tpu_torch.drivers.profile_bench",
+    "rucene_tpu_torch.drivers.profile_candidate",
     "rucene_tpu_torch.drivers.graft_entry",
     "rucene_tpu_torch.examples.example",
     "rucene_tpu_torch.examples.nrt_search",

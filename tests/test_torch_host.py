@@ -9,7 +9,8 @@ the reference's modules.
     combined view), serve three rows on a two-shard mesh
     (rucene_tpu_torch.parallel) and lay out a pod mesh, serve a parsed query
     string, a SpanOrQuery, an unordered SpanNearQuery, a sorted row and a
-    collapse row from an index with doc values, and import every entry
+    collapse row from an index with doc values, serve a pruned OR row
+    (search_batch(prune=True)), and import every entry
     point (rucene_tpu_torch.drivers, rucene_tpu_torch.examples): the card's
     host has no jax.
 (b) Drift guard: every host module the port copies from rucene_tpu equals
@@ -127,6 +128,9 @@ hits = searcher.search_batch(
     [T.TermQuery(T.Term("body", "gamma")), q, T.PhraseQuery("body", ["alpha", "beta"]), nested],
     k=10,
 )
+por = T.BooleanQuery().should(T.TermQuery(T.Term("body", "gamma"))).should(
+    T.TermQuery(T.Term("body", "zeta")))
+pruned = [searcher.search_batch([por], k=3, prune=p)[0] for p in (True, False)]
 import tempfile
 with tempfile.TemporaryDirectory() as tmp:
     w = T.IndexWriter(T.FSDirectory(tmp), T.IndexWriterConfig(max_buffered_docs=64))
@@ -170,6 +174,7 @@ srt = dv.search_sorted(T.TermQuery(T.Term("body", "gamma")), 10,
 col = dv.search_collapse(T.TermQuery(T.Term("body", "gamma")), 10, "rank")
 import rucene_tpu_torch.drivers.bench, rucene_tpu_torch.drivers.build_bench_cache
 import rucene_tpu_torch.drivers.graft_entry, rucene_tpu_torch.drivers.profile_bench
+import rucene_tpu_torch.drivers.profile_candidate
 import rucene_tpu_torch.drivers.workload, rucene_tpu_torch.examples.example
 import rucene_tpu_torch.examples.nrt_search
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "rucene_tpu"))
@@ -185,6 +190,7 @@ print(json.dumps({
     "surface": [[h.total_hits, len(h.score_docs)] for h in surface],
     "sorted": [srt.total_hits, [fd.fields[0] for fd in srt.field_docs]],
     "collapse": [col.total_hits, len(col.score_docs)],
+    "pruned": [[h.total_hits, [[d, s] for d, s in h.score_docs]] for h in pruned],
 }))
 """
 
@@ -219,6 +225,9 @@ def test_port_runs_without_jax():
     n_sorted, values = out["sorted"]
     assert n_sorted > 0 and values == sorted(values, reverse=True) and len(values) == 10
     assert out["collapse"][0] == n_sorted and 0 < out["collapse"][1] <= 10
+    # a pruned OR row (WAND) answers as the exhaustive one
+    (np_, top_p), (ne, top_e) = out["pruned"]
+    assert top_p == top_e and len(top_e) == 3 and 0 < np_ <= ne
 
 
 # --- (b) drift guard ----------------------------------------------------------

@@ -5,7 +5,8 @@ int32, bit for bit, with equal overflow columns, on packed segments (K1's
 twin decodes) and decoded ones, at 2 and 4 words a doc. "hot" has a doc
 past FMAX occurrences and "tail" one past PMAX positions, so the overflow
 column is exercised. phrase_plane_search_many must give equal top-k docs,
-hits and ov_count, scores within 4e-7.
+hits and ov_count, scores within 4e-7, and the single-row
+phrase_plane_search the same plus equal host-verify doc lists.
 """
 
 import jax.numpy as jnp
@@ -142,3 +143,48 @@ def test_phrase_plane_search_many_matches(decoded):
         assert np.all(np.abs(gs[fin] - ws[fin]) <= RTOL * np.maximum(1.0, np.abs(ws[fin])))
         totals += (wh.sum(), wo.sum())
     assert (totals > 0).all()  # some hits, and some rows the scalar engine must redo
+
+
+@pytest.mark.parametrize("decoded", [False, True])
+@pytest.mark.parametrize("row,ov_cap", [
+    (["quick", "brown"], 1024), (["quick", "brown", "fox"], 1024), (["hot", "spot"], 1024),
+    (["hot", "spot"], 1), (["the", "tail"], 1024),
+])
+def test_phrase_plane_search_single_row_matches(decoded, row, ov_cap):
+    """The single-row phrase_plane_search against rucene_tpu/ops/phrase_plane.py:323:
+    top-k docs, hits, the host-verify docs and their count equal, scores
+    within RTOL; "hot" rows meet overflowed docs, one with a cap below
+    their count."""
+    packed = _packed()
+    ref_dev, port_dev, _ = segments(packed, decoded)
+    md = packed.max_doc
+    words = 2
+    rng = np.random.default_rng(5)
+    live = np.zeros(port_dev.max_doc_padded, bool)
+    live[:md] = rng.random(md) > 0.1
+    norms = np.zeros(port_dev.max_doc_padded, np.int64)
+    norms[:md] = packed.norms["body"]
+    denom = BM25Similarity().cache_row(None)[norms].astype(np.float32)
+    weight = np.float32(1.75)
+    ref_p = [_ref_plane(ref_dev, packed, t, words) for t in row]
+    port_p = [_port_plane(port_dev, packed, t, words) for t in row]
+    want = ref_plane.phrase_plane_search(
+        tuple(p for p, _ in ref_p), tuple(o for _, o in ref_p),
+        jnp.asarray(live[: ref_dev.max_doc_padded]), jnp.asarray(denom[: ref_dev.max_doc_padded]),
+        jnp.asarray(weight), k=20, n_terms=len(row), ov_cap=ov_cap,
+    )
+    got = phrase_plane.phrase_plane_search(
+        tuple(p for p, _ in port_p), tuple(o for _, o in port_p), torch.from_numpy(live),
+        torch.from_numpy(denom), weight, k=20, n_terms=len(row), ov_cap=ov_cap,
+    )
+    ws, wd, wh, wov, woc = (np.asarray(a) for a in want)
+    gs, gd, gh, gov, goc = (a.numpy() for a in got)
+    assert gs.shape == (20,) and gd.dtype == np.int32
+    assert np.array_equal(gd, wd) and int(gh) == int(wh) and int(goc) == int(woc)
+    n_ov = min(len(wov), int(woc))
+    assert np.array_equal(gov[:n_ov], wov[:n_ov]) and (gov[n_ov:] == 2**31 - 1).all()
+    fin = np.isfinite(ws)
+    assert np.array_equal(np.isfinite(gs), fin)
+    assert np.all(np.abs(gs[fin] - ws[fin]) <= RTOL * np.maximum(1.0, np.abs(ws[fin])))
+    if row[0] == "hot":
+        assert int(goc) > 0
