@@ -55,11 +55,15 @@ Builds the CUDA kernels and the native library from this checkout, then:
      16 sampled TopDocs must equal the decoded run's bit for bit (pair and
      plane rows against the flat executor's);
   9. replays the head-band batch's combine call on the packed reader
-     against its plain version, times both, and the combine's library
-     yardstick (zeroed planes plus index_add_ of the items' valid lanes,
-     which the port never calls); then the scoring decode of the first
-     packed batch's single-term rows against its plain version: docs,
-     freqs and cval bit-equal; times both;
+     against its plain version, bit for bit, times both, and the
+     combine's library yardstick (zeroed planes plus index_add_ of the
+     items' valid lanes, which the port never calls); then the scoring
+     decode of the first packed batch's single-term rows against its
+     plain version: docs, freqs and cval bit-equal; times both; then the
+     largest ordered-sum call of phase 10's score-combine batch on the
+     packed reader (the flat executor's candidate groups;
+     ordered_sum_replay) against its plain version (a CPU index_add_),
+     bit for bit, timed beside both and one torch.segment_reduce;
  10. mixed rows and score-combine rows on both readers
      (serve_combine_rows): 256 mixed rows (an exact bigram from the
      first 5,000 docs, MUST or FILTER, beside 1-2 term clauses of the
@@ -147,11 +151,23 @@ Builds the CUDA kernels and the native library from this checkout, then:
      WAND (search_batch(prune=)) on 3-term and 2-term band OR rows at
      k = 10 and 32 against exhaustive serving, and the automatic rule under
      a lowered threshold; and a skewed 200,000-doc corpus in 4 segments
-     where pruning fires, per leaf and combined. Its gates are in
-     serve_pruning's docstring; its figures print under ``topk`` and
-     ``pruning``, its launches under ``pruning_launches`` and in the
-     kernels' rows.
-Each kernel's bound is the bytes it must move at the replayed shape (its
+     where pruning fires, per leaf and combined. Stage S (serve_sum_order)
+     holds the summation rule (a (row, doc)'s f32 score is +0.0 plus its
+     contributions in work-list item order): the many-word rows of
+     sum_order_queries (256 OR rows of 3-8 band terms, 64 rows ``+a +b c
+     d``, seed 41) served three times at k = 10, 100 and 1,000 on both
+     readers and on the combined view over the packed segment split in
+     4, every run bit-equal to the first (phase 14 does the same on its
+     sharded indexes); K3 bit-equal to its twin on a many-word call; the
+     64 packed ``and`` rows bit-equal to a packed CPU reader's answers.
+     Its gates are in serve_pruning's and serve_sum_order's docstrings;
+     its figures print under ``topk``, ``pruning`` and ``sum_order``, its
+     launches under ``pruning_launches`` and in the kernels' rows.
+The kernels' rows: K1 (decode_blocks), K2 (decode_score_blocks), K3
+(combine_lanes) and the port's own ordered-sum kernel
+(segment_sum_ordered, csrc/ordered_sum.cu), each with its launches summed
+over the phases' main-path runs; a kernel that never launched fails the
+run. Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
 L2), enqueued behind a sleep so that host launch time is not counted
@@ -163,8 +179,10 @@ phase 11's filter_qps, filter_packed_qps, filter_kernel_ms_busy,
 filter_planes and host_rows, phase 13's figures under ``query_surface``,
 phase 14's under ``sharded`` with its launches under ``sharded_launches``,
 phase 15's under ``drivers`` and ``drivers_launches``, phase 16's under
-``topk``, ``pruning`` and ``pruning_launches``, and phase 12's figures under ``nrt`` with its launches under
-``nrt_launches``), the card's name and power limit, and the device line.
+``topk``, ``pruning``, ``sum_order`` and ``pruning_launches``, phase 9's
+ordered-sum replay under ``ordered_sum``, and phase 12's figures under
+``nrt`` with its launches under ``nrt_launches``), the card's name and
+power limit, and the device line.
 """
 
 from __future__ import annotations
@@ -195,6 +213,7 @@ N_QUERIES = 512
 K1_SOURCE = "rucene_tpu_torch/csrc/decode.cu"
 K2_SOURCE = K1_SOURCE
 K3_SOURCE = "rucene_tpu_torch/csrc/combine.cu"
+K4_SOURCE = "rucene_tpu_torch/csrc/ordered_sum.cu"
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 FIELDS_SEED = 23  # pack_corpus: the ts / tag / doc-value fields of phases 10-14
 
@@ -494,6 +513,21 @@ def route_gates(counters, n_two_term: int, n_queries: int, split: bool, where: s
     return pair, plane
 
 
+def launch_counters() -> dict:
+    """Each kernel's name in the JSON line -> its wrapper's launch counter."""
+    from rucene_tpu_torch.ops import cuda_combine, cuda_decode, ordered_sum
+
+    return {"decode_blocks": cuda_decode.LAUNCH_COUNTER,
+            "decode_score_blocks": cuda_decode.SCORE_LAUNCH_COUNTER,
+            "combine_lanes": cuda_combine.LAUNCH_COUNTER,
+            "segment_sum_ordered": ordered_sum.LAUNCH_COUNTER}
+
+
+def launches_in(*counters: dict) -> dict:
+    """Each kernel's launches summed over the counter snapshots given."""
+    return {name: sum(c.get(key, 0) for c in counters) for name, key in launch_counters().items()}
+
+
 def counter_delta(after: dict, before: dict) -> dict:
     return {k: v - before.get(k, 0) for k, v in after.items()}
 
@@ -521,8 +555,7 @@ def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
     by a raise, after dropping the decoded reader's position planes and
     prewarming its own (through K1), then the head-band rows ``dense_q``
     (through K3). Counts are reset just before and read just after.
-    Returns (searcher, qps, last pass's TopDocs, K1 launches, K2
-    launches, K3 launches)."""
+    Returns (searcher, qps, last pass's TopDocs, launches)."""
     from rucene_tpu_torch.ops import cuda_combine
     from rucene_tpu_torch import IndexSearcher
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
@@ -585,7 +618,7 @@ def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
         f"{k1_serving} serving phrase rows)")
     phrase_gates(counter_delta(mix_counters, before), len(queries), n_phrase, len(queries),
                  full, "packed mix")
-    return searcher, qps, results, k1, k2, k3
+    return searcher, qps, results, launches_in(counters)
 
 
 def serve_combine_rows(searchers, cpu_searcher, mixed_q, extras_q, head_q, card, full):
@@ -648,11 +681,8 @@ def serve_combine_rows(searchers, cpu_searcher, mixed_q, extras_q, head_q, card,
             f"strategy dense={dense} candidate={cand}, combine launches "
             f"{extras.get(cuda_combine.LAUNCH_COUNTER, 0)}, routes " + " ".join(
                 f"{k}={v}" for k, v in sorted(extras.items()) if k.startswith("route.")))
-        for kname, counter in (("decode_blocks", cuda_decode.LAUNCH_COUNTER),
-                               ("decode_score_blocks", cuda_decode.SCORE_LAUNCH_COUNTER),
-                               ("combine_lanes", cuda_combine.LAUNCH_COUNTER)):
-            out["launches"][kname] = (out["launches"].get(kname, 0) + mixed.get(counter, 0)
-                                      + extras.get(counter, 0))
+        for kname, n in launches_in(mixed, extras).items():
+            out["launches"][kname] = out["launches"].get(kname, 0) + n
         out[f"{name}_mixed_qps"] = qps
         out[f"{name}_extras_qps"] = extras_qps
         out["results"][name] = (mixed_res, extras_res + head_res)
@@ -780,12 +810,8 @@ def serve_filter_rows(searchers, cpu_searcher, stage_a, stage_b, host_q, card, f
             f"candidate={b_cnt.get('search.strategy.candidate', 0)} "
             f"dense={b_cnt.get('search.strategy.dense', 0)}; stage C: {len(host_q)} host rows "
             f"in {host_s:.3f}s")
-        for kname, counter in (("decode_blocks", cuda_decode.LAUNCH_COUNTER),
-                               ("decode_score_blocks", cuda_decode.SCORE_LAUNCH_COUNTER),
-                               ("combine_lanes", cuda_combine.LAUNCH_COUNTER)):
-            out["launches"][kname] = out["launches"].get(kname, 0) + sum(
-                c.get(counter, 0) for c in (a_cnt, b_cnt, c_cnt)
-            )
+        for kname, n in launches_in(a_cnt, b_cnt, c_cnt).items():
+            out["launches"][kname] = out["launches"].get(kname, 0) + n
         out[f"{name}_qps"] = qps
         out[f"{name}_host_s"] = host_s
         out["results"][name] = (a_res, b_res, c_res)
@@ -1009,9 +1035,7 @@ def serve_query_surface(searchers, cpu_searcher, rows, mix_pairs, card):
 
     if not native.available or not span_native._register():
         raise AssertionError("the native span evaluator (rtpu_span_eval) did not build")
-    kernel_counters = {"decode_blocks": cuda_decode.LAUNCH_COUNTER,
-                       "decode_score_blocks": cuda_decode.SCORE_LAUNCH_COUNTER,
-                       "combine_lanes": cuda_combine.LAUNCH_COUNTER}
+    kernel_counters = launch_counters()
     entries = [0]  # combine entries handed to the kernel in a stage
     native_calls: list = []
     real_combine, real_eval = executor.combine_lanes, span_native.eval_spans
@@ -1252,8 +1276,8 @@ def shard_kernel_replay(index, searcher, dense_q, dev) -> dict:
     card: K1 over every block of shard 0's split view (its re-packed
     straddling blocks included), bit for bit; K2 (on a packed index) over
     the distinct blocks of the head-band rows ``dense_q`` on shard 0, bit
-    for bit; K3 over the same rows' combine call on shard 0's view (counts
-    equal, scores within 1e-5 relative). Times each against its twin."""
+    for bit; K3 over the same rows' combine call on shard 0's view, bit for
+    bit. Times each against its twin."""
     from rucene_tpu_torch.codec.device import build_device_segment
     from rucene_tpu_torch.index.combined import build_combined_tables
     from rucene_tpu_torch.ops import cuda_combine, cuda_decode
@@ -1318,13 +1342,7 @@ def shard_kernel_replay(index, searcher, dense_q, dev) -> dict:
     out_p = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
     cuda_combine.combine_lanes(*args, *out_k)
     cuda_combine.combine_lanes_plain(*args, *out_p)
-    torch.cuda.synchronize()
-    if not torch.equal(out_k[1], out_p[1]):
-        raise AssertionError("combine kernel counts differ from the twin at a shard's shapes")
-    err = float((out_k[0] - out_p[0]).abs().max())
-    tol = 1e-5 * float(out_p[0].abs().max().clamp(min=1.0))
-    if err > tol:
-        raise AssertionError(f"combine kernel scores differ from the twin by {err} > {tol} on a shard")
+    err = k3_bit_equal(out_k, out_p, "at a shard's shapes")
     out["combine_lanes"] = {
         "entries": int(cb.e_item.numel()), "rows": b, "max_doc_padded": int(gdev.max_doc_padded),
         "max_abs_err": err, "ms": cuda_ms(cuda_combine.combine_lanes, (*args, *out_k)),
@@ -1333,7 +1351,7 @@ def shard_kernel_replay(index, searcher, dense_q, dev) -> dict:
     return out
 
 
-def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, card, dev):
+def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, card, dev, sum_q):
     """Phase 14: the sharded path (parallel/sharded.py; BASELINE.json
     config 5's segment-sharded index, on one card) on both readers. Per
     reader (``searchers``: the decoded and the packed one-reader searchers
@@ -1343,14 +1361,16 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
     a combined view of its own (the packed one built with
     RUCENE_DECODED=0); then the bench mix (512 queries, batch 256, k=100),
     the rows of sharded_queries and the 32 head-band rows ``dense_q``
-    through ShardedSearcher.search_batch, timed passes of the mix, and a
-    profiled pass. Counts are set to 0 just before the index is built and
-    read after the last batch.
+    through ShardedSearcher.search_batch, stage S's many-word rows
+    (``sum_q``, sum_order_queries) SUM_REPEATS times at each k of SUM_KS,
+    timed passes of the mix, and a profiled pass. Counts are set to 0 just
+    before the index is built and read after the last batch.
 
     Gates (each raises): every TopDocs of the mix equals the one-reader
     answers of phases 4-8 (``mix_answers``) and every other row the
     one-reader searcher's, under tests/torch_hitcheck.py (rows of at most
-    two scoring clauses); 8 mix rows and 12 sharded rows equal the CPU run;
+    two scoring clauses); stage S's rows bit-equal run to run and all on
+    route.mesh; 8 mix rows and 12 sharded rows equal the CPU run;
     the route counters as planned (the mix's 448 term rows on route.mesh
     and 64 phrase rows on route.mesh_phrase a pass, the sharded rows'
     32 / 16 / 8); K1 launched once a shard by the decoded index's build
@@ -1358,7 +1378,7 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
     packed one's serving, K3 on both; on the packed index no plain decode
     twin runs. Then shard_kernel_replay holds the three kernels at a
     shard's shapes. Returns the phase's figures and launches."""
-    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
+    from rucene_tpu_torch.ops import cuda_decode
     from rucene_tpu_torch.parallel.sharded import ShardedIndex, ShardedSearcher, make_mesh
     from rucene_tpu_torch.util.metrics import METRICS
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -1369,7 +1389,7 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
     rows, planned = graft
     n_phrase = sum(type(q).__name__ == "PhraseQuery" for q in mix)
     figures: dict = {"shards": SHARDS, "devices": [str(d) for d in devices]}
-    launches = {"decode_blocks": 0, "decode_score_blocks": 0, "combine_lanes": 0}
+    launches = dict.fromkeys(launch_counters(), 0)
     cpu_idx = list(range(0, len(mix), len(mix) // 8))[:8]
     cpu_mix = cpu_searcher.search_batch([mix[i] for i in cpu_idx], k=K)
     row_idx = [0, 1, 2, 3, 16, 17, 24, 28, 32, 40, 48, 54]  # every kind but the span fallback
@@ -1412,14 +1432,16 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
             before = METRICS.snapshot()["counters"]
             got_dense = ss.search_batch(dense_q, k=K)
             dense_routes = delta(before)
+            before = METRICS.snapshot()["counters"]
+            t = time.perf_counter()
+            served_identically(lambda r, k: ss.search_batch(r, k=k), sum_q,
+                               f"phase 14 S, {kind} shards")
+            sum_s = time.perf_counter() - t
+            sum_routes = delta(before)
             torch.cuda.synchronize()
         counters = METRICS.snapshot()["counters"]  # the path ends here
         peak = torch.cuda.max_memory_allocated() / 2**30
-        moved = {
-            "decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0),
-            "decode_score_blocks": counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0),
-            "combine_lanes": counters.get(cuda_combine.LAUNCH_COUNTER, 0),
-        }
+        moved = launches_in(counters)
         for name in launches:
             launches[name] += moved[name]
         passes = mix_routes.get("route.mesh_phrase", 0) // max(n_phrase, 1)
@@ -1432,6 +1454,10 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
             raise AssertionError(f"{kind} sharded rows' routes {route_of(row_routes)} != {planned}")
         if dense_routes.get("route.mesh", 0) != len(dense_q):
             raise AssertionError(f"{kind} head-band rows' routes {route_of(dense_routes)}")
+        n_sum = len(SUM_KS) * SUM_REPEATS * sum(len(r) for r in sum_q.values())
+        if sum_routes.get("route.mesh", 0) != n_sum:
+            raise AssertionError(f"{kind} stage S rows' routes {route_of(sum_routes)}, "
+                                 f"expected {n_sum} on route.mesh")
         if kind == "decoded":
             if k1_build != SHARDS or moved["decode_blocks"] != SHARDS:
                 raise AssertionError(f"decoded shards: K1 {k1_build} at the build, "
@@ -1465,6 +1491,7 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
             "qps": qps, "build_s": build_s, "shard_build_s": index.build_s,
             "shard_docs": [sum(lf.max_doc for lf in g) for g in index.groups],
             "shard_blocks": [v.n_blocks for v in index.views], "kernel_ms_busy": [ms, busy],
+            "sum_order_s": sum_s,
             "top_kernels": top, "peak_gib": peak, "launches": moved,
             "routes": {r: counters.get(r, 0) for r in ("route.mesh", "route.mesh_phrase",
                                                         "route.mesh_fallback")},
@@ -1475,6 +1502,9 @@ def serve_sharded(searchers, cpu_searcher, mix, mix_answers, dense_q, graft, car
             f"{qps:.1f} QPS ({len(mix)} queries, batch {BATCH}, k={K}) on {card}; kernels "
             f"{ms:.1f} ms a pass, busy {busy:.1%}; peak {peak:.2f} GiB; launches {moved}; routes "
             f"{figures[kind]['routes']}; every row equals the one-reader answers, 20 the CPU run; "
+            f"stage S's {sum(len(r) for r in sum_q.values())} many-word rows served "
+            f"{SUM_REPEATS} times at k = {', '.join(map(str, SUM_KS))}, every run bit-equal to "
+            f"the first ({sum_s:.1f}s); "
             "top kernels (ms a pass): " + "; ".join(f"{n} {v:.2f}" for n, v in top))
         figures[f"{kind}_replay"] = shard_kernel_replay(index, searcher, dense_q, dev)
         del index, ss, got, got_rows, got_dense
@@ -1531,14 +1561,11 @@ def serve_drivers(searchers, mix, mix_answers, dense_q, card) -> tuple[dict, dic
     from rucene_tpu_torch.drivers import bench as drv_bench
     from rucene_tpu_torch.drivers import profile_bench
     from rucene_tpu_torch.examples import stable_lines
-    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
     from rucene_tpu_torch.util.metrics import METRICS
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     from torch_hitcheck import assert_topdocs_strict  # numpy-only test helper
 
-    counter_of = {"decode_blocks": cuda_decode.LAUNCH_COUNTER,
-                  "decode_score_blocks": cuda_decode.SCORE_LAUNCH_COUNTER,
-                  "combine_lanes": cuda_combine.LAUNCH_COUNTER}
+    counter_of = launch_counters()
     launches = dict.fromkeys(counter_of, 0)
 
     def count_launches():
@@ -1697,8 +1724,8 @@ def dense_topk_rows(searcher, rows) -> torch.Tensor:
     return torch.cat(seen)
 
 
-def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
-                  hot_docs: int = HOT_DOCS) -> tuple[dict, dict]:
+def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev, cpu_searcher,
+                  sum_q, hot_docs: int = HOT_DOCS) -> tuple[dict, dict]:
     """Phase 16, block-max pruning, on the 1M-doc readers of phases 3-9
     (``searchers``: decoded, packed; the packed one with the plain decode
     twins refused), after phase 15:
@@ -1717,10 +1744,14 @@ def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
          packed one, at k = 10 and 32, served with prune=False and
          prune=True (drivers.bench.serve_mix): hits equal under
          tests/torch_hitcheck.py (assert_pruned_strict for the 2-term
-         rows; the 3-term rows' sums take an unspecified order on the
-         card, so they are held by assert_truncated_within_rtol to their
-         exhaustive answer at k=WIDE_K, and the rows that cross the k-th
-         hit are logged with each crossing doc's scores in both runs),
+         rows; a 3-term row's two runs may take different routes or
+         strategies (tf planes exhaustively and the flat executor
+         pruned on the decoded reader, the dense branch at WIDE_K), whose
+         sums may differ where a residue item lands, so the 3-term rows
+         are held by assert_truncated_within_rtol to their exhaustive
+         answer at k=WIDE_K; the rows that pass assert_pruned_strict
+         against the exhaustive run at k are counted, and the rows that
+         cross the k-th hit logged with each crossing doc's scores),
          pruned total_hits never above the exhaustive; QPS both ways,
          search.pruned_blocks, search.prune_rerun_rows and the busy
          share of a pruned pass. Then
@@ -1731,11 +1762,16 @@ def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
          by the port's IndexWriter into 4 segments, served per leaf and
          through the combined view on the card at k = 1 and 5:
          search.pruned_blocks > 0 each way, hits equal to prune=False's.
+      S. the summation rule, before F (serve_sum_order): the rows of
+         ``sum_q`` served three times at k = 10, 100 and 1,000 on both
+         readers and a combined view, every run bit-equal to the first;
+         K3 bit-equal to its twin on a many-word call; 64 packed rows
+         bit-equal to a packed CPU reader's answers (``cpu_searcher``'s
+         decoded answers beside them are counted, not held).
     Each stage runs with its counts set to 0 just before and read just
     after. Returns ({"topk": ..., "pruning": ...}, launches)."""
     from rucene_tpu_torch import IndexSearcher, IndexWriter, IndexWriterConfig
     from rucene_tpu_torch import Document, RAMDirectory, TextField
-    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
     from rucene_tpu_torch.ops import topk
     from rucene_tpu_torch.util.metrics import METRICS
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -1745,9 +1781,7 @@ def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
         assert_truncated_within_rtol,
     )
 
-    counter_of = {"decode_blocks": cuda_decode.LAUNCH_COUNTER,
-                  "decode_score_blocks": cuda_decode.SCORE_LAUNCH_COUNTER,
-                  "combine_lanes": cuda_combine.LAUNCH_COUNTER}
+    counter_of = launch_counters()
     launches = dict.fromkeys(counter_of, 0)
 
     def count_launches():
@@ -1915,6 +1949,7 @@ def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
                     count_launches()
                 fig["pruned"]["busy"] = busy
                 fig["order_swaps"] = check(pruned, exact, name, k, "W")
+                fig["strict_rows"] = len(rows) - len(fig["order_swaps"])
                 lower = sum(p.total_hits < e.total_hits for p, e in zip(pruned, exact))
                 fig["lower_bound_rows"] = lower
                 wand[f"{kind}_{name}_k{k}"] = fig
@@ -1923,7 +1958,8 @@ def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
                     f"{pr['qps']:.1f} pruned (busy {busy:.1%} of a pruned batch); "
                     f"search.pruned_blocks {pr['pruned_blocks']}, rows rerun "
                     f"{pr['rerun_rows']} of {pr['passes'] * len(rows)}, {lower} rows with a "
-                    f"lower-bound total_hits; hits equal")
+                    f"lower-bound total_hits; hits equal; {fig['strict_rows']} of {len(rows)} "
+                    f"rows pass assert_pruned_strict against the exhaustive run at k={k}")
         with env("RUCENE_PRUNE_AUTO_MIN_DOCS", str(AUTO_MIN_DOCS)), refuse(kind):
             METRICS.reset()
             auto = searcher.search_batch(or3, k=10)
@@ -1942,6 +1978,9 @@ def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
         log(f"phase 16 W, {kind}: prune=None under RUCENE_PRUNE_AUTO_MIN_DOCS={AUTO_MIN_DOCS}: "
             f"search.auto_prune_batches {n_auto} on the 3-term rows at k=10, {n_mix} on the "
             f"mix at k={K}")
+
+    # S. the summation rule: many-word rows, each batch served three times
+    sum_fig = serve_sum_order(searchers, cpu_searcher, sum_q, dev, count_launches)
 
     # F. pruning that fires: the skewed corpus in 4 segments
     t = time.perf_counter()
@@ -1987,7 +2026,218 @@ def serve_pruning(searchers, mix, mix_answers, dense_q, vocab, probs, card, dev,
     log(f"phase 16 F: {hot_docs} docs written into {len(reader.leaves)} segments in "
         f"{write_s:.1f}s; launches of the phase {launches}")
     return {"topk": topk_fig, "pruning": {"wand": wand, "fires": fires,
-                                         "hot_docs": hot_docs, "write_s": write_s}}, launches
+                                         "hot_docs": hot_docs, "write_s": write_s},
+            "sum_order": sum_fig}, launches
+
+
+SUM_SEED = 41  # stage S's many-word rows
+SUM_KS = (10, 100, 1000)
+SUM_REPEATS = 3
+SUM_CPU_ROWS = 64  # packed rows held bit for bit to the port's CPU answers
+
+
+def sum_order_queries(vocab, probs, seed: int = SUM_SEED) -> dict:
+    """Stage S's rows, drawn from ``seed`` over the bench's band (ranks
+    10-5000, Zipf-weighted): {"or": 256 pure-OR rows of 3-8 distinct terms,
+    "and": 64 rows ``+a +b c d``} (MS MARCO-like many-word rows)."""
+    from rucene_tpu_torch import BooleanQuery, Term, TermQuery
+
+    rng = np.random.default_rng(seed)
+    draw = band_sampler(vocab, probs, rng)
+
+    def words(n):
+        out: list = []
+        while len(out) < n:
+            w = draw()
+            if w not in out:
+                out.append(w)
+        return out
+
+    def t(w):
+        return TermQuery(Term("body", w))
+
+    or_rows = []
+    for _ in range(BATCH):
+        q = BooleanQuery()
+        for w in words(int(rng.integers(3, 9))):
+            q.should(t(w))
+        or_rows.append(q)
+    and_rows = []
+    for _ in range(SUM_CPU_ROWS):
+        a, b, c, d = words(4)
+        and_rows.append(BooleanQuery().must(t(a)).must(t(b)).should(t(c)).should(t(d)))
+    return {"or": or_rows, "and": and_rows}
+
+
+def served_identically(search, row_sets: dict, where: str, ks=SUM_KS,
+                       repeats: int = SUM_REPEATS) -> dict:
+    """Each batch of ``row_sets`` ({name: rows}) served ``repeats`` times at
+    each k of ``ks`` through ``search(rows, k)``; raises unless every run's
+    TopDocs equal the first run's bit for bit (f32 score bits, docs,
+    total_hits). Returns {(name, k): the first run's TopDocs}."""
+    out = {}
+    for name, rows in row_sets.items():
+        for k in ks:
+            runs = [search(rows, k) for _ in range(repeats)]
+            for r, run in enumerate(runs[1:], 2):
+                for i, (a, b) in enumerate(zip(run, runs[0])):
+                    if a.total_hits != b.total_hits or a.score_docs != b.score_docs:
+                        diff = sorted(set(a.score_docs) ^ set(b.score_docs))[:6]
+                        raise AssertionError(
+                            f"{where}: {name} row {i} at k={k}, run {r} differs from run 1: "
+                            f"hits {a.total_hits} / {b.total_hits}, (doc, score) in one run "
+                            f"only: {diff}")
+            out[(name, k)] = runs[0]
+    return out
+
+
+def residue_slots(searcher, rows) -> int:
+    """(row, doc) slots a residue item's lane reaches (the items the dense
+    branch adds after the combine kernel, pass by pass) for ``rows`` on
+    ``searcher``'s first leaf, whatever branch the batch takes."""
+    q, combine, target, _sc, valid = flat_combine_call(searcher, rows)
+    md = searcher.reader.leaves[0].device.max_doc_padded
+    residue = torch.cat([cb.residue for cb in combine])
+    if not residue.numel():
+        return 0
+    rt = target[residue].long()
+    keys = q.wi_row[residue].long()[:, None] * md + rt
+    return int(torch.unique(keys[valid[residue] & (rt < md)]).numel())
+
+
+def serve_sum_order(searchers, cpu_searcher, sum_q, dev, count_launches) -> dict:
+    """Phase 16 stage S, the summation rule on the card (a (row, doc)'s f32
+    score is +0.0 plus its contributions in work-list item order): the
+    rows of sum_order_queries (256 OR rows of 3-8 band terms, 64 rows
+    ``+a +b c d``) served SUM_REPEATS times at k = 10, 100 and 1,000 on the
+    decoded and the packed reader and on the combined view over the packed
+    segment split in 4 doc ranges (packed leaves; phase 14 serves them on
+    its sharded indexes): every run bit-equal to the first
+    (served_identically). Then, on the packed reader, K3 bit-equal to its
+    twin on the combine call of the first 32 OR rows, and its 64 ``and``
+    rows at k=100 bit-equal to a packed CPU reader's answers to the same
+    batch. Printed only: the decoded reader's rows that differ from the
+    port's CPU answers (``cpu_searcher``; planes on one side and the flat
+    executor on the other may take another order where a residue item
+    lands), and the (row, doc) slots a residue item reaches. Each serving
+    stage runs with its counts set to 0 just before and read just after
+    (``count_launches``). Returns the stage's figures."""
+    from rucene_tpu_torch import IndexSearcher
+    from rucene_tpu_torch.codec.split import split_packed_segment
+    from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
+    from rucene_tpu_torch.ops import cuda_combine
+    from rucene_tpu_torch.util.metrics import METRICS
+
+    def refuse(kind):
+        return plain_decode_refused() if kind == "packed" else contextlib.nullcontext()
+
+    def search_of(s):
+        return lambda rows, k: s.search_batch(rows, k=k)
+
+    fig: dict = {"rows": {n: len(r) for n, r in sum_q.items()}, "ks": list(SUM_KS),
+                 "repeats": SUM_REPEATS}
+    answers = {}
+    for kind, searcher in searchers.items():
+        t = time.perf_counter()
+        METRICS.reset()
+        with refuse(kind):
+            answers[kind] = served_identically(search_of(searcher), sum_q, f"phase 16 S, {kind}")
+        torch.cuda.synchronize()
+        c = METRICS.snapshot()["counters"]
+        count_launches()
+        fig[kind] = {"s": time.perf_counter() - t,
+                     "strategy": {b: c.get(f"search.strategy.{b}", 0) for b in ("dense", "candidate")},
+                     "routes": {r: c.get(f"route.{r}", 0)
+                                for r in ("flat", "plane_rows", "pair_rows", "single")}}
+        log(f"phase 16 S, {kind}: {len(sum_q['or'])} OR rows of 3-8 terms and "
+            f"{len(sum_q['and'])} rows +a +b c d, served {SUM_REPEATS} times at k = "
+            f"{', '.join(map(str, SUM_KS))}: every run bit-equal to the first "
+            f"({fig[kind]['s']:.1f}s; strategy {fig[kind]['strategy']}, routes {fig[kind]['routes']})")
+
+    # the combined view over the packed segment split in 4 doc ranges
+    packed = searchers["packed"].reader.leaves[0].packed
+    t = time.perf_counter()
+    parts = split_packed_segment(packed, 4)
+    prev = os.environ.get("RUCENE_DECODED")
+    os.environ["RUCENE_DECODED"] = "0"
+    try:
+        with plain_decode_refused():
+            comb = IndexSearcher(IndexReader([SegmentSnapshot(f"bench[{i}]", p)
+                                              for i, p in enumerate(parts)]),
+                                 searchers["packed"].similarity, device=dev, combine_segments=True)
+            comb._combined_view()
+            torch.cuda.synchronize()
+            split_s = time.perf_counter() - t
+            t = time.perf_counter()
+            METRICS.reset()
+            comb_answers = served_identically(search_of(comb), sum_q, "phase 16 S, combined view")
+            torch.cuda.synchronize()
+            c = METRICS.snapshot()["counters"]
+            count_launches()
+    finally:
+        if prev is None:
+            os.environ.pop("RUCENE_DECODED", None)
+        else:
+            os.environ["RUCENE_DECODED"] = prev
+    if c.get("reader.combined_builds", 0) > 1:
+        raise AssertionError(f"phase 16 S: {c['reader.combined_builds']} combined views built")
+    same = sum(a.total_hits == b.total_hits and a.score_docs == b.score_docs
+               for key in comb_answers for a, b in zip(comb_answers[key], answers["packed"][key]))
+    fig["combined"] = {"leaves": len(parts), "split_s": split_s, "s": time.perf_counter() - t,
+                       "rows_equal_packed": same,
+                       "rows": sum(len(v) for v in comb_answers.values())}
+    log(f"phase 16 S, combined view over the packed segment split in {len(parts)} "
+        f"({split_s:.1f}s to split and build): every run bit-equal to the first "
+        f"({fig['combined']['s']:.1f}s); {same} of {fig['combined']['rows']} rows equal the "
+        "one-leaf packed reader's bit for bit")
+    del comb, parts
+
+    # K3 on one many-word call of the packed reader, bit for bit
+    packed_s = searchers["packed"]
+    with plain_decode_refused():
+        _q, combine, target, sc, _valid = flat_combine_call(packed_s, sum_q["or"][:MAX_CALL_ROWS])
+    cb = combine[0]
+    b = min(len(sum_q["or"]), MAX_CALL_ROWS)
+    shape = (b, packed_s.reader.leaves[0].device.max_doc_padded)
+    args = (cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc)
+    out_k = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
+    out_p = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
+    cuda_combine.combine_lanes(*args, *out_k)
+    cuda_combine.combine_lanes_plain(*args, *out_p)
+    k3_bit_equal(out_k, out_p, "on the many-word call")
+    fig["k3_many_word"] = {"rows": b, "entries": int(cb.e_item.numel())}
+    log(f"phase 16 S: combine kernel bit-equal to its twin on the first {b} OR rows' call "
+        f"({int(cb.e_item.numel())} entries)")
+    del out_k, out_p, args, target, sc, combine
+
+    # the packed reader's 64 ``and`` rows against a packed CPU reader
+    prev = os.environ.get("RUCENE_DECODED")
+    os.environ["RUCENE_DECODED"] = "0"
+    try:
+        cpu_packed = IndexSearcher(IndexReader([SegmentSnapshot("bench", packed)]),
+                                   packed_s.similarity, device="cpu")
+        t = time.perf_counter()
+        cpu_and = cpu_packed.search_batch(sum_q["and"], k=K)
+    finally:
+        if prev is None:
+            os.environ.pop("RUCENE_DECODED", None)
+        else:
+            os.environ["RUCENE_DECODED"] = prev
+    for i, (g, w) in enumerate(zip(answers["packed"][("and", K)], cpu_and)):
+        if g.total_hits != w.total_hits or g.score_docs != w.score_docs:
+            raise AssertionError(f"phase 16 S: packed row {i} (+a +b c d) differs from the "
+                                 "port's CPU answer")
+    cpu_dec = cpu_searcher.search_batch(sum_q["and"], k=K)
+    dec_diff = sum(g.total_hits != w.total_hits or g.score_docs != w.score_docs
+                   for g, w in zip(answers["decoded"][("and", K)], cpu_dec))
+    fig["cpu"] = {"packed_rows_equal": len(cpu_and), "decoded_rows_differing": dec_diff,
+                  "s": time.perf_counter() - t}
+    res = {name: residue_slots(packed_s, rows) for name, rows in sum_q.items()}
+    fig["residue_slots"] = res
+    log(f"phase 16 S: {len(cpu_and)} packed rows +a +b c d at k={K} bit-equal to a packed CPU "
+        f"reader's answers to the same batch; {dec_diff} of {len(cpu_dec)} decoded rows differ "
+        f"from the CPU searcher's; (row, doc) slots a residue item reaches: {res}")
+    return fig
 
 
 # --- phase 12: NRT on the card (bench.py:519-640 main_nrt, its defaults) -----
@@ -2028,8 +2278,8 @@ def nrt_kernel_replay(searcher, leaf, dense_q, dev) -> dict:
     built for ``leaf`` on the main path, every block bit for bit against
     the twin on the CPU (left out when the leaf is served packed). K3: the
     combine call of the head-band pair rows ``dense_q`` on the leaf's dense
-    branch, kernel and twin on ``dev``: counts equal, scores within 1e-5
-    relative. Returns each kernel's figures; the K3 replay's one launch is
+    branch, the kernel on ``dev`` and the twin (which adds on the CPU), bit
+    for bit. Returns each kernel's figures; the K3 replay's one launch is
     not a main-path launch."""
     from rucene_tpu_torch.codec.device import build_device_segment
     from rucene_tpu_torch.ops import cuda_combine, cuda_decode
@@ -2053,13 +2303,7 @@ def nrt_kernel_replay(searcher, leaf, dense_q, dev) -> dict:
     out_p = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
     cuda_combine.combine_lanes(*args, *out_k)
     cuda_combine.combine_lanes_plain(*args, *out_p)
-    if not torch.equal(out_k[1], out_p[1]):
-        raise AssertionError(f"combine kernel counts differ from the twin on NRT segment {leaf.name}")
-    err = float((out_k[0] - out_p[0]).abs().max())
-    tol = 1e-5 * float(out_p[0].abs().max().clamp(min=1.0))
-    if err > tol:
-        raise AssertionError(f"combine kernel scores differ from the twin by {err} > {tol} "
-                             f"on NRT segment {leaf.name}")
+    err = k3_bit_equal(out_k, out_p, f"on NRT segment {leaf.name}")
     out["combine_lanes"] = {"entries": int(cb.e_item.numel()), "rows": shape[0],
                             "max_doc_padded": shape[1], "max_abs_err": err}
     return out
@@ -2135,7 +2379,6 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
         open_directory_reader,
     )
     from rucene_tpu_torch.codec import files as segfiles
-    from rucene_tpu_torch.ops import cuda_combine, cuda_decode
     from rucene_tpu_torch.tools.check_index import check_index
     from rucene_tpu_torch.util.metrics import METRICS
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -2372,11 +2615,7 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
         f"before; 16 rows equal the CPU reader; phrase planes held for segments no reader serves: "
         f"{dead_plane_bytes} bytes on the card")
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    launches = {
-        "decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0),
-        "decode_score_blocks": counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0),
-        "combine_lanes": counters.get(cuda_combine.LAUNCH_COUNTER, 0),
-    }
+    launches = launches_in(counters)
     # K1 and K3 at a flush segment's shapes (the smallest leaf the delete
     # refresh served) against their twins, after the phase's counts are read
     small = min(s.reader.leaves, key=lambda lf: lf.max_doc)
@@ -2384,7 +2623,7 @@ def serve_nrt(dev, card, seconds: float = NRT_SECONDS, disk: bool = True,
     log(f"NRT kernels at segment {small.name}'s shapes ({small.max_doc} docs): "
         + ("decode kernel bit-equal to the twin over "
            f"{replay['decode_blocks']['blocks']} blocks; " if "decode_blocks" in replay else "")
-        + f"combine kernel matches the twin ({replay['combine_lanes']['entries']} entries, "
+        + f"combine kernel bit-equal to the twin ({replay['combine_lanes']['entries']} entries, "
         f"{replay['combine_lanes']['rows']} rows x {replay['combine_lanes']['max_doc_padded']} docs, "
         f"max abs err {replay['combine_lanes']['max_abs_err']:.3g})")
     del s_new, s
@@ -2568,7 +2807,7 @@ def mp_worker(argv) -> int:
     device), serves the queries in batches of NRT_BATCH (a warm pass, then
     a timed one) and writes its answers and figures to OUT.RANK."""
     from rucene_tpu_torch import FSDirectory
-    from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
+    from rucene_tpu_torch.ops import cuda_build
     from rucene_tpu_torch.parallel import multi_host
     from rucene_tpu_torch.parallel.sharded import ShardedIndex, ShardedSearcher
     from rucene_tpu_torch.util.metrics import METRICS
@@ -2611,9 +2850,7 @@ def mp_worker(argv) -> int:
             "rank": rank, "world": world, "backend": torch.distributed.get_backend(),
             "device": str(dev), "mesh": mesh.shape, "owned": sorted(index.owned),
             "loaded_segments": len(index.leaves), "load_s": load_s, "qps": qps,
-            "launches": {"decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0),
-                         "decode_score_blocks": counters.get(cuda_decode.SCORE_LAUNCH_COUNTER, 0),
-                         "combine_lanes": counters.get(cuda_combine.LAUNCH_COUNTER, 0)},
+            "launches": launches_in(counters),
             "routes": {r: counters.get(r, 0) for r in ("route.mesh", "route.mesh_phrase",
                                                         "route.mesh_fallback")},
             "hits": [[td.total_hits, [[int(d), float(s)] for d, s in td.score_docs]] for td in got],
@@ -2715,6 +2952,84 @@ def serve_multi_process(index_dir: str, queries, one_reader, dev, backend: str =
     return {"world": world, "wall_s": wall, "ranks": ranks}
 
 
+def k3_bit_equal(out_k, out_p, where: str) -> float:
+    """Raise unless the combine kernel's (scores, counts) equal its twin's
+    bit for bit; return the scores' max abs difference (0.0)."""
+    torch.cuda.synchronize()
+    if not torch.equal(out_k[1], out_p[1]):
+        raise AssertionError(f"combine kernel counts differ from the twin {where}")
+    if not torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32)):
+        err = float((out_k[0] - out_p[0]).abs().max())
+        raise AssertionError(f"combine kernel scores differ from the twin {where} "
+                             f"(max abs err {err})")
+    return float((out_k[0] - out_p[0]).abs().max())
+
+
+def ordered_sum_calls(searcher, batch, k: int = K) -> list:
+    """The (values, seg_start, gid) of every ordered-sum call the executor
+    makes while ``searcher`` serves ``batch`` at ``k``, cloned."""
+    from rucene_tpu_torch.ops import ordered_sum
+
+    seen = []
+    orig = ordered_sum.segment_sum_ordered
+
+    def spy(values, seg_start, gid=None):
+        gid = ordered_sum.group_ids(seg_start) if gid is None else gid
+        seen.append((values.clone(), seg_start.clone(), gid.clone()))
+        return orig(values, seg_start, gid)
+
+    # the candidate branch calls it through ordered_sum.grouped_sums_ordered
+    ordered_sum.segment_sum_ordered = spy
+    try:
+        searcher.search_batch(batch, k=k)
+    finally:
+        ordered_sum.segment_sum_ordered = orig
+    return seen
+
+
+def ordered_sum_replay(searcher, batch) -> dict:
+    """The largest ordered-sum call of ``batch`` on ``searcher`` (the
+    packed reader's candidate groups), replayed: the kernel bit-equal to its plain
+    version (a CPU index_add_), both timed beside the byte bound and one
+    torch.segment_reduce over the same groups (the library yardstick,
+    which the port never calls; whether it equals the kernel bit for bit is
+    logged, not held)."""
+    from rucene_tpu_torch.ops import ordered_sum
+
+    calls = ordered_sum_calls(searcher, batch)
+    if not calls:
+        raise AssertionError("the batch made no ordered-sum call")
+    args = max(calls, key=lambda c: c[0].numel())
+    got = ordered_sum.segment_sum_ordered(*args)
+    want = ordered_sum.segment_sum_ordered_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("the ordered-sum kernel differs from its plain version")
+    values, seg_start, _gid = args
+    starts = torch.nonzero(seg_start).flatten()
+    lengths = torch.diff(torch.cat([starts, starts.new_tensor([values.numel()])]))
+
+    def library(v, ln):
+        return torch.segment_reduce(v, "sum", lengths=ln)
+
+    n_bytes = ordered_sum.min_bytes(seg_start)
+    out = {
+        "calls": len(calls), "lanes": int(values.numel()), "groups": int(starts.numel()),
+        "longest_group": int(lengths.max()), "max_abs_err": 0.0,
+        "ms": cuda_ms(ordered_sum.segment_sum_ordered, args),
+        "plain_ms": cuda_ms(ordered_sum.segment_sum_ordered_plain, args, reps=3, copies=1),
+        "library_ms": cuda_ms(library, (values, lengths)),
+        "library_equal": bool(torch.equal(library(values, lengths), got[: starts.numel()])),
+        "bytes": n_bytes, "bound_ms": bound_ms(n_bytes),
+    }
+    log(f"ordered-sum kernel bit-equal to its plain version over {out['lanes']} lanes in "
+        f"{out['groups']} groups (the largest of {out['calls']} calls; longest group "
+        f"{out['longest_group']}): {out['ms']:.4f} ms, plain (CPU index_add_) "
+        f"{out['plain_ms']:.3f} ms, torch.segment_reduce {out['library_ms']:.4f} ms (bit-equal: "
+        f"{out['library_equal']}); must move {n_bytes} bytes, bound {out['bound_ms']:.4f} ms")
+    return out
+
+
 def single_k2_call(searcher, batch):
     """The scoring decode call the searcher makes for ``batch``'s single-term
     rows on its packed leaf: (data, off, dbits, fbits, base, count, fid,
@@ -2750,35 +3065,52 @@ def single_k2_call(searcher, batch):
     )
 
 
-def head_band_combine_call(searcher, dense_q, leaf=None):
-    """The combine call the searcher makes for the head-band pair rows
-    ``dense_q`` on ``leaf`` (its first leaf by default) when they take the
-    flat executor's dense branch: (FlatQueryBatch, CombineBatch, target
+MAX_CALL_ROWS = 32  # rows of one combine call (ops/combine_tables.MAX_ROWS)
+
+
+def flat_combine_call(searcher, rows, leaf=None):
+    """The flat executor's inputs for ``rows`` on ``leaf`` (the searcher's
+    first leaf by default), as the searcher builds them for the dense
+    branch: (FlatQueryBatch, CombineBatches a 32-row chunk, target
     i32[W,128], sc f32[W,128], valid bool[W,128]), the lanes as
     decode_score_lanes returns them."""
     from rucene_tpu_torch.search import executor, flat_tables
 
-    plans = [searcher._plan_for(q) for q in dense_q]
+    plans = [searcher._plan_for(q) for q in rows]
     rqs = [p.rq for p in plans]
     doc_freqs, stats = searcher._gather_stats(rqs, plans)
     b = len(rqs)
+    t = max(len(rq.all_slots()) for rq in rqs)
     weight, occur, n_req, min_sh, _ma, _bo = flat_tables.build_clause_tables(
-        rqs, searcher.similarity, doc_freqs, stats, b, 2, plans=plans
+        rqs, searcher.similarity, doc_freqs, stats, b, t, plans=plans
     )
     leaf = searcher.reader.leaves[0] if leaf is None else leaf
     gdev = leaf.device
-    bs, bc, fid = flat_tables.build_leaf_tables(leaf, rqs, b, 2, plans=plans)
+    bs, bc, fid = flat_tables.build_leaf_tables(leaf, rqs, b, t, plans=plans)
     work = flat_tables.build_flat_work(bs, bc, weight, fid, occur)[:6]
-    if not executor.dense_strategy(b, gdev.max_doc_padded, len(work[0])):
-        raise AssertionError("the head-band pair batch is not in the dense regime")
     cache = flat_tables.build_leaf_cache(leaf, searcher.similarity, stats)
     q = flat_tables.make_flat_batch(work, n_req, min_sh, cache, gdev, dedupe=True)
-    cb = flat_tables.build_combine_batch(
+    combine = flat_tables.build_combine_batch(
         work, b, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc, gdev.max_doc_padded,
         leaf.torch_device,
-    )[0]
+    )
     target, sc, valid = executor.decode_score_lanes(gdev, q)
-    return q, cb, target, sc, valid
+    return q, combine, target, sc, valid
+
+
+def head_band_combine_call(searcher, dense_q, leaf=None):
+    """The combine call the searcher makes for the head-band pair rows
+    ``dense_q`` on ``leaf`` (its first leaf by default) when they take the
+    flat executor's dense branch: (FlatQueryBatch, CombineBatch, target,
+    sc, valid) as flat_combine_call gives them; raises unless the rows are
+    in the dense regime."""
+    from rucene_tpu_torch.search import executor
+
+    q, combine, target, sc, valid = flat_combine_call(searcher, dense_q, leaf)
+    md = (searcher.reader.leaves[0] if leaf is None else leaf).device.max_doc_padded
+    if not executor.dense_strategy(len(dense_q), md, q.wi_block.numel()):
+        raise AssertionError("the head-band pair batch is not in the dense regime")
+    return q, combine[0], target, sc, valid
 
 
 def is_two_term(q) -> bool:
@@ -2904,6 +3236,7 @@ def main() -> int:
     filter_a, filter_b, host_q = filter_queries(texts[:5000], vocab, probs)  # phase 11's rows
     surface_q = surface_queries(texts[:5000], vocab, probs)  # phase 13's rows
     sharded_q = sharded_queries(texts[:5000], vocab, probs)  # phase 14's rows
+    sum_q = sum_order_queries(vocab, probs)  # phase 14's and 16's many-word rows
     packed = pack_corpus(texts, fields_seed=FIELDS_SEED)
     del texts
     from rucene_tpu_torch.util.packing import EF_TAG
@@ -2992,7 +3325,7 @@ def main() -> int:
     counters = METRICS.snapshot()["counters"]  # the main path ends here
     route_gates(counter_delta(counters, before), sum(is_two_term(q) for q in queries_no_phrase),
                 N_QUERIES, split, "decoded mix without phrases")
-    launches = {"decode_blocks": counters.get(cuda_decode.LAUNCH_COUNTER, 0)}
+    launches = launches_in(counters)
     log(f"kernel launches on the decoded path: {launches}")
     log("routes: " + " ".join(
         f"{k}={v}" for k, v in sorted(counters.items()) if not k.startswith("kernel.")
@@ -3043,7 +3376,7 @@ def main() -> int:
 
     # 8. packed serving at full size: a second reader over the same segment
     dense_q = head_pair_queries(vocab)
-    packed_searcher, packed_qps, packed_results, k1_packed, k2_launches, k3_launches = serve_packed(
+    packed_searcher, packed_qps, packed_results, p8_launches = serve_packed(
         packed, queries, dense_q, dev, card, split, n_phrase, full
     )
     for i in sample_idx:
@@ -3065,15 +3398,9 @@ def main() -> int:
     cuda_combine.combine_lanes(*args, *out_k)
     cuda_combine.combine_lanes_plain(*args, *out_p)
     torch.cuda.synchronize()
-    if not torch.equal(out_k[1], out_p[1]):
-        raise AssertionError("combine kernel counts differ from the twin")
-    k3_err = float((out_k[0] - out_p[0]).abs().max())
-    tol = 1e-5 * float(out_p[0].abs().max().clamp(min=1.0))
-    if k3_err > tol:
-        raise AssertionError(f"combine kernel scores differ from the twin by {k3_err} > {tol}")
-    log(f"combine kernel matches the twin ({int(cb.e_item.numel())} entries, "
-        f"max abs err {k3_err:.3g}, tolerance 1e-5 relative); "
-        f"{int(cb.residue.numel())} residue items go to the executor's scatter")
+    k3_err = k3_bit_equal(out_k, out_p, "on the head-band call")
+    log(f"combine kernel bit-equal to the twin ({int(cb.e_item.numel())} entries); "
+        f"{int(cb.residue.numel())} residue items go to the executor's residue passes")
     k3_ms = cuda_ms(cuda_combine.combine_lanes, (*args, *out_k))
     k3_plain_ms = cuda_ms(cuda_combine.combine_lanes_plain, (*args, *out_p), reps=2, copies=1)
     # the library yardstick: zeroed planes, then index_add_ of every valid
@@ -3124,6 +3451,10 @@ def main() -> int:
     log(f"scoring decode kernel bit-equal to the twin over {k2_args[1].shape[0]} distinct blocks: "
         f"{k2_ms:.4f} ms, twin {k2_plain_ms:.4f} ms; must move {k2_bytes} bytes, "
         f"bound {bound_ms(k2_bytes):.4f} ms")
+    # then the largest ordered sum of the score-combine rows' candidate
+    # call against its plain version (a CPU index_add_) and
+    # torch.segment_reduce
+    k4 = ordered_sum_replay(packed_searcher, extras_q)
 
     # 10. mixed phrase rows and score-combine rows on both readers
     p10 = serve_combine_rows(
@@ -3147,9 +3478,8 @@ def main() -> int:
     # 14. sharded search on both readers: the one segment split over 4 shards
     p14, p14_launches = serve_sharded(
         {"decoded": searcher, "packed": packed_searcher}, cpu_searcher, queries,
-        {"decoded": mix_results, "packed": packed_results}, dense_q, sharded_q, card, dev,
+        {"decoded": mix_results, "packed": packed_results}, dense_q, sharded_q, card, dev, sum_q,
     )
-    del cpu_reader, cpu_searcher
 
     # 15. the port's entry points on both readers: the bench's serving loop,
     # the examples, the NRT bench and a profile capture
@@ -3163,7 +3493,9 @@ def main() -> int:
     p16, p16_launches = serve_pruning(
         {"decoded": searcher, "packed": packed_searcher}, queries,
         {"decoded": mix_results, "packed": packed_results}, dense_q, vocab, probs, card, dev,
+        cpu_searcher, sum_q,
     )
+    del cpu_reader, cpu_searcher
 
     # 12. NRT on the card, after releasing phases 1-11's device state
     del searcher, packed_searcher, reader, leaf, gdev, tf_planes, pdev, k2_args, got, want
@@ -3181,33 +3513,34 @@ def main() -> int:
                  *(p14[f"{kind}_replay"]["combine_lanes"]["max_abs_err"]
                    for kind in ("decoded", "packed")))
 
+    phases = (launches, p8_launches, p10["launches"], p11["launches"], p13["launches"],
+              nrt_launches, p14_launches, p15_launches, p16_launches)
+    total = {name: sum(p.get(name, 0) for p in phases) for name in launch_counters()}
+    for name, n in total.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main path")
     print(json.dumps({"kernels": [
         {"name": "decode_blocks", "route": "cuda", "source": K1_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:256",
-         "launches": launches["decode_blocks"] + k1_packed + p10["launches"]["decode_blocks"]
-         + p11["launches"]["decode_blocks"] + p13["launches"]["decode_blocks"]
-         + nrt_launches["decode_blocks"] + p14_launches["decode_blocks"]
-         + p15_launches["decode_blocks"] + p16_launches["decode_blocks"],
-         "max_abs_err": k1_err,
+         "launches": total["decode_blocks"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": bound_ms(k1_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "decode_score_blocks", "route": "cuda", "source": K2_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_decode.py:330",
-         "launches": k2_launches + p10["launches"]["decode_score_blocks"]
-         + p11["launches"]["decode_score_blocks"] + p13["launches"]["decode_score_blocks"]
-         + nrt_launches["decode_score_blocks"] + p14_launches["decode_score_blocks"]
-         + p15_launches["decode_score_blocks"] + p16_launches["decode_score_blocks"],
-         "max_abs_err": k2_err,
+         "launches": total["decode_score_blocks"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": bound_ms(k2_bytes),
          "bound_by": "bytes", "library_ms": None},
         {"name": "combine_lanes", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rucene_tpu/ops/pallas_combine.py:114",
-         "launches": k3_launches + p10["launches"]["combine_lanes"] + p11["launches"]["combine_lanes"]
-         + p13["launches"]["combine_lanes"] + nrt_launches["combine_lanes"]
-         + p14_launches["combine_lanes"] + p15_launches["combine_lanes"] + p16_launches["combine_lanes"],
-         "max_abs_err": k3_err,
+         "launches": total["combine_lanes"], "max_abs_err": k3_err,
          "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": bound_ms(k3_bytes),
          "bound_by": "bytes", "library_ms": k3_lib_ms},
+        {"name": "segment_sum_ordered", "route": "cuda", "source": K4_SOURCE,
+         "replaces": "none: the port's own kernel (ordered sums where the reference's "
+                     "XLA scatters keep their order)",
+         "launches": total["segment_sum_ordered"], "max_abs_err": k4["max_abs_err"],
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+         "bound_by": "bytes", "library_ms": k4["library_ms"]},
     ], "qps": qps, "packed_qps": packed_qps, "qps_no_phrase": qps_no_phrase,
         "n_docs": n_docs, "n_phrase_rows": n_phrase, "prewarm_planes": n_planes,
         "prewarm_s": prewarm_s, "plane_mib": plane_mib, "mix_peak_gib": mix_peak,
@@ -3226,7 +3559,8 @@ def main() -> int:
         "query_surface": {"decoded": p13["decoded"], "packed": p13["packed"]},
         "nrt": p12, "nrt_launches": nrt_launches, "sharded": p14,
         "sharded_launches": p14_launches, "drivers": p15, "drivers_launches": p15_launches,
-        "topk": p16["topk"], "pruning": p16["pruning"], "pruning_launches": p16_launches}))
+        "topk": p16["topk"], "pruning": p16["pruning"], "pruning_launches": p16_launches,
+        "sum_order": p16["sum_order"], "ordered_sum": k4}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,11 @@ in the reference's order:
     on a packed reader, row gathers of the resident planes on a decoded
     one;
   - ``decode+scatter_score`` / ``decode+scatter_counts``: the decode, then
-    an ``index_add_`` of the lanes' scores / clause encodings into dense
-    [B, md] planes (the reference's ``.at[].add``);
+    the lanes' scores / clause encodings into dense [B, md] planes (the
+    reference's ``.at[].add``): the scores in item order, grouped by slot
+    as the executor's candidate branch groups them
+    (ops/ordered_sum.grouped_sums_ordered, the ordered-sum kernel on the
+    card), the counts through an ``index_add_``;
   - ``topk_dense[B,md]``: topk_score_doc at ``--k`` (100) over the scattered
     scores (-inf where 0), the block-max chunk pass of ops/topk.exact_top_k
     when the row is wide enough; its answer is held equal to
@@ -93,6 +96,7 @@ def profile(searcher, queries, stages=STAGES, k: int = 100, out=print) -> dict:
     whether topk_score_doc's answer equalled stable_top_k's and
     ``chunk_pass`` whether exact_top_k took its chunk pass there."""
     from rucene_tpu_torch.ops import topk
+    from rucene_tpu_torch.ops.ordered_sum import grouped_sums_ordered
     from rucene_tpu_torch.search.executor import decode_score_lanes, execute_flat_impl
     from rucene_tpu_torch.search.flat_tables import build_combine_batch
 
@@ -115,10 +119,16 @@ def profile(searcher, queries, stages=STAGES, k: int = 100, out=print) -> dict:
     def scatter(values_of):
         target, sc, valid = decode_score_lanes(dev, q)
         rows = q.wi_row.long()[:, None]
-        idx = torch.where(target < md, rows * md + target, b * md).reshape(-1)
-        vals = values_of(sc, valid)
-        acc = torch.zeros(b * md + 1, dtype=vals.dtype, device=vals.device)
-        acc.index_add_(0, idx, vals.reshape(-1))
+        trash = b * md
+        lanes = torch.arange(target.numel(), device=target.device).view(target.shape)
+        idx = torch.where(target < md, rows * md + target, trash + lanes).reshape(-1)
+        vals = values_of(sc, valid).reshape(-1)
+        acc = torch.zeros(trash + 1, dtype=vals.dtype, device=vals.device)
+        if vals.dtype == torch.float32:  # in item order, as the executor sums
+            slot, _perm, _gid, sums = grouped_sums_ordered(idx, vals, trash)
+            acc[slot.clamp(max=trash)] = sums
+        else:
+            acc.index_add_(0, idx.clamp(max=trash), vals)
         return acc[: b * md].view(b, md)
 
     def scores_of(sc, _valid):

@@ -30,6 +30,7 @@ _SIGNATURES = {
     "rtt_decode_blocks": [_P] * 9 + [ctypes.c_int64, ctypes.c_int, _P],
     "rtt_decode_score_blocks": [_P] * 11 + [ctypes.c_int64, _P],
     "rtt_combine_lanes": [_P] * 8 + [ctypes.c_int] * 3 + [ctypes.c_int64, _P],
+    "rtt_segment_sum_ordered": [_P] * 4 + [ctypes.c_int64, _P],
 }
 
 

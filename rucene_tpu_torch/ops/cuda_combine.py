@@ -10,17 +10,24 @@ output.
 
 Bound: device-memory bytes (min_bytes), mostly the rows x max_doc x 8
 bytes of output. Each CTA zeroes a shared-memory tile of one bucket
-(C_BUCKET docs) by up to 8 rows, adds its entries' in-bucket lanes with
-shared-memory atomics (a warp per entry, four lanes a thread, 16-byte
-loads) and writes the tile once in 16-byte stores; six such CTAs share an
-SM, so one's write-out overlaps another's adds. C_BUCKET is 512, half the
-TPU's 1024, and stays so: a smaller bucket would send more items to the
-executor's scatter residue (SPARSE_SPAN counts buckets) and cost the host
-more entries. The bf16 three-limb split and one-hot matmuls of the TPU
-kernel have no counterpart: scores add in f32 and counts in int32, exactly.
+(C_BUCKET docs) by up to 8 rows, gathers its group's entries of the
+bucket into a shared list in entry order, and gives each tile row to one
+warp, which adds that row's entries one after another with plain
+shared-memory adds (four lanes a thread, 16-byte loads); the tile leaves
+in 16-byte stores; six such CTAs share an SM, so one's write-out overlaps
+another's adds. Summation rule: a (row, doc)'s score is +0.0 plus its
+lanes in entry order, which within a bucket is work-list item order
+(ops/combine_tables.py sorts entries by bucket stably), one rounding an
+add; the twin follows the same rule (an index_add_ on the CPU), so the
+two are bit-equal and a call is a fixed function of its input. C_BUCKET
+is 512, half the TPU's 1024, and stays so: a smaller bucket would send
+more items to the executor's residue (SPARSE_SPAN counts buckets) and
+cost the host more entries. The bf16 three-limb split and one-hot matmuls
+of the TPU kernel have no counterpart: scores add in f32 and counts in
+int32.
 
-A CPU tensor goes to the plain twin (an index_put_ with accumulate); a
-CUDA tensor launches the kernel or raises.
+A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -62,7 +69,11 @@ def min_bytes(target, e_item, n_buckets: int, n_rows: int) -> int:
 
 def combine_lanes_plain(bucket_ptr, target, sc, e_item, e_row, e_enc, out_score, out_counts):
     """The twin: add every in-bucket lane of every entry's item into the
-    outputs (overwritten, not accumulated into)."""
+    outputs (overwritten, not accumulated into). A (row, doc)'s score is
+    +0.0 plus its lanes in entry order, the kernel's order, so the two
+    agree bit for bit: the scores are an index_add_ on the CPU, which adds
+    in index order (index_add_ on the card adds with atomics, so tensors
+    on the card go to the CPU and back); counts are exact int32 sums."""
     rows, md = out_score.shape
     n_buckets = bucket_ptr.shape[0] - 1
     per_bucket = (bucket_ptr[1:] - bucket_ptr[:-1]).long()
@@ -74,15 +85,17 @@ def combine_lanes_plain(bucket_ptr, target, sc, e_item, e_row, e_enc, out_score,
     r = e_row.long()[:, None]
     keep = (local >= 0) & (local < C_BUCKET) & (r >= 0) & (r < rows)
     trash = rows * md
-    idx = torch.where(keep, r * md + e_bucket[:, None] * C_BUCKET + local, trash)
-    acc_s = torch.zeros(trash + 1, dtype=torch.float32, device=target.device)
-    acc_c = torch.zeros(trash + 1, dtype=torch.int32, device=target.device)
-    acc_s.index_put_((idx.reshape(-1),), sc[item].reshape(-1), accumulate=True)
-    acc_c.index_put_(
-        (idx.reshape(-1),), e_enc.to(torch.int32)[:, None].expand_as(idx).reshape(-1),
-        accumulate=True,
+    idx = torch.where(keep, r * md + e_bucket[:, None] * C_BUCKET + local, trash).reshape(-1)
+    # a slot lies in one bucket, whose entries are in item order, so the
+    # lanes reach each slot in item order
+    acc_s = torch.zeros(trash + 1, dtype=torch.float32).index_add_(
+        0, idx.cpu(), sc[item].reshape(-1).cpu()
     )
-    out_score.copy_(acc_s[:trash].view(rows, md))
+    acc_c = torch.zeros(trash + 1, dtype=torch.int32, device=target.device)
+    acc_c.index_put_(
+        (idx,), e_enc.to(torch.int32)[:, None].expand_as(local).reshape(-1), accumulate=True,
+    )
+    out_score.copy_(acc_s[:trash].view(rows, md).to(out_score.device))
     out_counts.copy_(acc_c[:trash].view(rows, md))
     return out_score, out_counts
 

@@ -21,10 +21,21 @@ per (query, clause, 128-doc block):
 Step 2 has two branches, picked by the reference's shape rule
 ``b * md <= 12 * lanes`` (dense_strategy; the rule picks a strategy,
 never a result): dense [b, md] accumulators filled by the combine kernel
-(ops/cuda_combine.py) plus a scatter of its sparse residue, or candidate
-lanes sorted by (row, doc) and summed per group with ``index_add_``.
-Integer counts are exact in both; f32 sums follow an unspecified order, as
-in the reference (its scatter and associative scan differ the same way).
+(ops/cuda_combine.py) plus its sparse residue, or candidate lanes sorted
+by (row, doc) and summed per group (ops/ordered_sum.py).
+
+Summation rule, on the card and on the CPU: a (row, doc)'s f32 score is
++0.0 plus each of its contributions in work-list item order (row, clause,
+block), one rounding an add. The combine kernel adds its entries in that
+order and the candidate groups are ordered segmented sums; the tf-plane
+route adds clause by clause from +0.0 and agrees. One exception: the
+dense branch adds its residue items after the kernel's sum (in item order
+among themselves), so where a residue item lands the order is the
+kernel's items, then the residue's. Either way a batch's answers are a
+fixed function of its work list, run after run. Integer counts are exact
+in any order. The reference's scatters and associative scan
+keep an order of their own, so a sum of three or more clauses may differ
+from its by float association (tests/torch_hitcheck.py RTOL).
 
 Single-term rows (one positive-weight clause, no deletes) skip steps 2-3:
 each row's lanes are one posting list in doc order, so a per-row top-k
@@ -70,6 +81,7 @@ from rucene_tpu_torch.ops.combine_tables import MAX_ROWS
 from rucene_tpu_torch.ops.cuda_combine import combine_lanes
 from rucene_tpu_torch.ops.cuda_decode import decode_score_blocks
 from rucene_tpu_torch.ops.decode import INVALID_DOC
+from rucene_tpu_torch.ops.ordered_sum import grouped_sums_ordered
 from rucene_tpu_torch.ops.phrase_plane import phrase_freqs
 from rucene_tpu_torch.ops.topk import (
     DOC_PAD,
@@ -120,8 +132,10 @@ class CombineBatch(NamedTuple):
     e_item: torch.Tensor  # i32[E] work item per entry
     e_row: torch.Tensor  # i32[E] chunk-local row
     e_enc: torch.Tensor  # i32[E] clause-count encoding
-    residue: torch.Tensor  # i64[R] items left to the plain scatter
+    residue: torch.Tensor  # i64[R] items left to the residue passes, by (pass, item)
     row_lo: int  # first global row of the chunk
+    # host offsets of each residue pass in ``residue`` (flat_tables.residue_passes)
+    residue_ptr: tuple[int, ...] = (0,)
 
 
 class RowExtras(NamedTuple):
@@ -262,10 +276,22 @@ def _decode_lanes(dev: DeviceSegment, q: FlatQueryBatch):
     return target, sc, valid, torch.where(valid, freqs, 0)
 
 
+def _residue_passes(combine):
+    """Each residue pass's items over all chunks (i64, device): a pass
+    reaches a (row, doc) slot at most once, and a slot's passes come in
+    item order (flat_tables.residue_passes)."""
+    for j in range(max(len(cb.residue_ptr) for cb in combine) - 1):
+        parts = [cb.residue[cb.residue_ptr[j]:cb.residue_ptr[j + 1]]
+                 for cb in combine if j + 1 < len(cb.residue_ptr)]
+        yield parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def _combine_dense(q, target, sc, valid, b, md, combine):
     """Dense [b, md] score and count accumulators: the combine kernel per
-    32-row chunk (reading the items' lanes in place), then a plain scatter
-    of the sparse residue items."""
+    32-row chunk (reading the items' lanes in place), then the sparse
+    residue items pass by pass, each pass's lanes added to distinct slots
+    with a gather and a put, so a slot's residue lanes add in item order
+    after the kernel's sum."""
     trash = b * md  # one spare slot takes every out-of-range lane
     acc_s = torch.empty(trash + 1, dtype=torch.float32, device=sc.device)
     acc_c = torch.empty(trash + 1, dtype=torch.int32, device=sc.device)
@@ -279,14 +305,14 @@ def _combine_dense(q, target, sc, valid, b, md, combine):
             cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc,
             score2d[cb.row_lo:hi], count2d[cb.row_lo:hi],
         )
-    residue = torch.cat([cb.residue for cb in combine])
-    if residue.numel():
-        rt = target[residue].long()
-        rows = q.wi_row[residue].long()[:, None]
+    for items in _residue_passes(combine):
+        rt = target[items].long()
+        rows = q.wi_row[items].long()[:, None]
+        # slots below trash are distinct within a pass; only trash repeats
         idx = torch.where(rt < md, rows * md + rt, trash).reshape(-1)
-        acc_s.index_put_((idx,), sc[residue].reshape(-1), accumulate=True)
-        renc = torch.where(valid[residue], q.wi_enc[residue][:, None], 0)
-        acc_c.index_put_((idx,), renc.reshape(-1), accumulate=True)
+        acc_s[idx] = acc_s[idx] + sc[items].reshape(-1)
+        renc = torch.where(valid[items], q.wi_enc[items][:, None], 0)
+        acc_c[idx] = acc_c[idx] + renc.reshape(-1)
     return score2d, count2d
 
 
@@ -357,20 +383,14 @@ def execute_flat_impl(
     n_lanes = target.numel()
     cdocs = target.reshape(-1).long()
     crows = q.wi_row.long()[:, None].expand_as(target).reshape(-1)
-    # sort lanes by (row, doc) — one int64 key — so each doc's contributions
-    # are contiguous; out-of-range lanes get the maximal key
+    # sort lanes by (row, doc), one int64 key, stably, so each doc's
+    # contributions are contiguous and in item order; out-of-range lanes
+    # key a group each from pad_key up, past every real group
     stride = md + 1
     pad_key = (b + 1) * stride
-    key = torch.where(cdocs < md, crows * stride + cdocs, pad_key)
-    o_key, perm = torch.sort(key, stable=True)
-    seg_start = torch.ones(n_lanes, dtype=torch.bool, device=dvc)
-    seg_start[1:] = o_key[1:] != o_key[:-1]
-    gid = torch.cumsum(seg_start, 0) - 1  # group id per sorted lane
-    sum_sc = torch.zeros(n_lanes, dtype=torch.float32, device=dvc).index_add_(
-        0, gid, sc.reshape(-1)[perm]
-    )
-    g_key = torch.full((n_lanes,), pad_key, dtype=torch.int64, device=dvc)
-    g_key.scatter_(0, gid, o_key)  # every lane of a group carries its key
+    lanes = torch.arange(n_lanes, device=dvc)
+    key = torch.where(cdocs < md, crows * stride + cdocs, pad_key + lanes)
+    g_key, perm, gid, sum_sc = grouped_sums_ordered(key, sc.reshape(-1), pad_key)
     g_row = g_key // stride
     g_doc = g_key % stride
     safe_doc = g_doc.clamp(max=md - 1)
@@ -446,9 +466,8 @@ def _dense_match(dev: DeviceSegment, q: FlatQueryBatch, combine: tuple[CombineBa
                  filters: FilterPlanes | None = None):
     """Dense boolean evaluation of q's term clauses and filter planes:
     (match bool[B, md], acc_score f32[B, md]). The accumulators come from
-    _combine_dense (the combine kernel plus its scatter residue), the
-    reference's scatter-add sums: counts exactly, and a sum of at most two
-    scoring clauses a (row, doc) in any order; the planes fold in after."""
+    _combine_dense (the combine kernel plus its residue), under the
+    module's summation rule; the planes fold in after."""
     b = q.n_required.shape[0]
     md = dev.max_doc_padded
     target, sc, valid = decode_score_lanes(dev, q)

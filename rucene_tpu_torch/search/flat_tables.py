@@ -362,12 +362,34 @@ def make_flat_batch(work, n_required, min_should, cache, dev, dedupe: bool = Fal
     )
 
 
+def residue_passes(residue, wi_row, wi_block, blk_first, blk_last):
+    """The dense branch's residue items (ascending item ids) split into
+    passes that it can add without float atomics: within a pass no two
+    lanes reach one (row, doc) slot, and two items of one row whose doc
+    ranges overlap fall in passes in item order. A row's items open a new
+    pass where an item's first doc is not past the previous item's last
+    doc; the blocks of one clause rise, so a row takes at most one pass a
+    clause. Returns (items ordered by (pass, item), host offsets of each
+    pass)."""
+    if not len(residue):
+        return residue, (0,)
+    blk = wi_block[residue]
+    row = wi_row[residue]
+    new_row = np.r_[True, row[1:] != row[:-1]]
+    run = np.cumsum(new_row | np.r_[True, blk_first[blk[1:]] <= blk_last[blk[:-1]]]) - 1
+    row_head = np.maximum.accumulate(np.where(new_row, np.arange(len(residue)), 0))
+    pas = run - run[row_head]
+    order = np.argsort(pas, kind="stable")
+    ptr = np.searchsorted(pas[order], np.arange(int(pas.max()) + 2))
+    return residue[order], tuple(int(x) for x in ptr)
+
+
 def build_combine_batch(arrays, b: int, blk_first, blk_last, mdp: int, device):
     """Dense-combine entry tables, one CombineBatch per 32-row chunk:
     entries (work item x overlapped C_BUCKET doc bucket) sorted by bucket,
     with per-bucket offsets, as the combine kernel walks them.
-    Items overlapping more than SPARSE_SPAN buckets go to the scatter
-    residue (global rows)."""
+    Items overlapping more than SPARSE_SPAN buckets go to the residue
+    (global rows), split into passes (residue_passes)."""
     from rucene_tpu_torch.ops.combine_tables import MAX_ROWS, build_combine_tables
     from rucene_tpu_torch.ops.cuda_combine import C_BUCKET
 
@@ -389,14 +411,18 @@ def build_combine_batch(arrays, b: int, blk_first, blk_last, mdp: int, device):
         live = tbl.e_item >= 0
         e_bucket = tbl.g_bucket[live]
         bucket_ptr = np.searchsorted(e_bucket, np.arange(tbl.n_buckets + 1))
+        residue, residue_ptr = residue_passes(
+            tbl.residue_items, wi_row, wi_block, blk_first, blk_last
+        )
         out.append(
             CombineBatch(
                 bucket_ptr=_to(bucket_ptr, device, torch.int32),
                 e_item=_to(tbl.e_item[live], device),
                 e_row=_to(tbl.e_row[live], device),
                 e_enc=_to(tbl.e_enc[live], device),
-                residue=_to(tbl.residue_items, device, torch.int64),
+                residue=_to(residue, device, torch.int64),
                 row_lo=lo,
+                residue_ptr=residue_ptr,
             )
         )
     return tuple(out)

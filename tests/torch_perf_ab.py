@@ -20,8 +20,12 @@ own copy of this harness (``cd DIR && python3 tests/torch_perf_ab.py --root
   - K1 over every block and K2 on the first batch's single-term rows,
     timed like the smoke (cold L2, host launch time excluded), and the
     executor's dense combine step (``_combine_dense``: K3 and what feeds
-    it) on the head-band pair batch served by the packed reader, timed
-    the same way;
+    it) and K3 alone on the head-band pair batch served by the packed
+    reader, the same step on the first batch's two-term rows and on the
+    smoke's 256 many-word OR rows (``sum_order_queries``), both with
+    residue items, timed the same way (``k3_step_ms``, ``k3_step_many_ms``: each run's planes kept, so
+    fresh allocations fall inside the timed span) and with a warm
+    allocator (``*_warm_ms``, warm_ms);
   - the rows each route took over the serving passes (``route.*``
     counters) and the decoded segment's tf-plane bytes (0 for a tree
     without them).
@@ -52,6 +56,28 @@ def _load_smoke():
     return mod
 
 
+def warm_ms(fn, args, reps: int = 10) -> float:
+    """Mean device time of fn(*args) over reps back-to-back runs, after a
+    warm run, each run's result dropped as it returns: the caching
+    allocator hands the next run the same blocks, so no allocation falls
+    inside the timed span (the dense step's planes, 256 MB and more, are
+    far larger than the L2 either way). The launches are enqueued behind a
+    sleep kernel, as in the smoke's cuda_ms."""
+    import torch
+
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", required=True)
@@ -69,7 +95,7 @@ def main() -> int:
     from rucene_tpu_torch import IndexSearcher
     from rucene_tpu_torch.codec.device import build_device_segment
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
-    from rucene_tpu_torch.ops import cuda_build, cuda_decode
+    from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
     from rucene_tpu_torch.search import executor
     from rucene_tpu_torch.util.metrics import METRICS
 
@@ -141,7 +167,41 @@ def main() -> int:
     out["k3_step_ms"] = smoke.cuda_ms(
         executor._combine_dense, (q, target, sc, valid, len(dense_q), md, (cb,))
     )
+    shape = (len(dense_q), md)
+    planes = (torch.empty(shape, device=dev), torch.empty(shape, dtype=torch.int32, device=dev))
+    out["k3_ms"] = smoke.cuda_ms(
+        cuda_combine.combine_lanes, (cb.bucket_ptr, target, sc, cb.e_item, cb.e_row, cb.e_enc,
+                                     *planes)
+    )
+    out["k3_step_warm_ms"] = warm_ms(
+        executor._combine_dense, (q, target, sc, valid, len(dense_q), md, (cb,))
+    )
     out["k3_entries"] = int(cb.e_item.numel())
+    out["k3_residue_items"] = int(cb.residue.numel())
+    del q, cb, target, sc, valid, planes
+
+    # the same step on the first batch's two-term rows (residue items of
+    # 1-2 clauses a row)
+    pair_rows = [x for x in queries[:smoke.BATCH] if smoke.is_two_term(x)]
+    q, combine, target, sc, valid = smoke.flat_combine_call(packed_searcher, pair_rows)
+    out["mix_step_warm_ms"] = warm_ms(
+        executor._combine_dense, (q, target, sc, valid, len(pair_rows), md, combine)
+    )
+    out["mix_rows"] = len(pair_rows)
+    out["mix_residue_items"] = sum(int(cb.residue.numel()) for cb in combine)
+    del q, combine, target, sc, valid
+
+    # the same step on the many-word OR rows: 8 chunks, residue items of
+    # several clauses a row
+    rows = smoke.sum_order_queries(vocab, probs)["or"]
+    q, combine, target, sc, valid = smoke.flat_combine_call(packed_searcher, rows)
+    out["k3_step_many_ms"] = smoke.cuda_ms(
+        executor._combine_dense, (q, target, sc, valid, len(rows), md, combine), reps=4, copies=1
+    )
+    out["k3_step_many_warm_ms"] = warm_ms(
+        executor._combine_dense, (q, target, sc, valid, len(rows), md, combine)
+    )
+    out["many_residue_items"] = sum(int(cb.residue.numel()) for cb in combine)
     print(json.dumps(out), flush=True)
     return 0
 
