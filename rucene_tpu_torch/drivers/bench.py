@@ -4,13 +4,13 @@ of bench.py's ``main`` and ``main_nrt``).
     python -m rucene_tpu_torch.drivers.bench [--docs N] [--reader packed] [--device cpu]
     python -m rucene_tpu_torch.drivers.bench --nrt [--seconds 45] [--refresh-s 0.5]
 
-Prints one JSON line on stdout, with bench.py's keys:
+Prints one JSON line on stdout, with bench.py's keys but its bandwidth
+share:
   {"metric": ..., "value": QPS, "unit": "queries/sec/chip",
-   "vs_baseline": QPS / baseline QPS, "bandwidth_frac": x}
+   "vs_baseline": QPS / baseline QPS}
 and its context lines on stderr: rows per route, the timers of the timed
 passes only (search.batch and the trace spans of util/metrics), the batch
-latency p50 / p99, the postings traffic, the index build and the
-baseline.
+latency p50 / p99, the index build and the baseline.
 
 Workload (drivers/workload.py, bench.py's): the Zipf corpus (or
 ``--corpus pytext``), the mix of 3/8 single-term, 2/8 OR, 2/8 AND and 1/8
@@ -29,12 +29,6 @@ passes and 5 s, at most 20 passes.
   median of 5-9 passes) or, with ``--baseline numpy`` or when the native
   engine is missing, of the numpy host engine over 32 rows. BASELINE.json's
   pinned figure is not read: it was measured on another host.
-- bandwidth_frac: the decoded lanes the executors touched in the timed
-  passes (``search.flat_lanes``, 10 bytes a lane: i32 doc, u16 freq, f32
-  cval) over the wall time, as a share of the H100's 3.35 TB/s. The
-  reference adds its ``search.plane_bytes`` counter, which the port does
-  not keep (ROADMAP.md, left out on purpose), so plane traffic is not
-  counted. On the CPU it is null: it names a device metric.
 - ``--nrt`` (bench.py's main_nrt, BASELINE.json config 4): a writer thread
   adds docs (``--ingest-rate`` a second, 250 a chunk, a commit every
   2,000) to a RAMDirectory index of ``--docs`` base docs (200,000) while
@@ -66,8 +60,6 @@ import numpy as np
 from rucene_tpu_torch.drivers import device_name, require_device
 from rucene_tpu_torch.drivers import workload as wl
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-LANE_BYTES = 10  # i32 doc + u16 freq + f32 cval
 DEFAULT_CACHE = os.path.join(tempfile.gettempdir(), "rtpu_bench_cache")
 ROUTE_KEYS = (
     "route.device", "route.phrase", "route.synonym", "route.host",
@@ -267,18 +259,10 @@ def main(args) -> dict:
     log("routes: " + " ".join(f"{key.split('.', 1)[1]}={counters.get(key, 0)}"
                               for key in ROUTE_KEYS))
     log("timers(timed-only): " + " ".join(
-        f"{name}={tot:.2f}s/{cnt}" for name, tot, cnt in timers[:12] if cnt))
+        f"{name}={tot:.2f}s/{cnt}" for name, tot, cnt in timers if cnt))
     log(latency_line(served.batch_ms) + f" (pipeline depth {args.pipeline})")
 
     base_qps, base_label = baseline_qps(searcher, queries, args.k, args.baseline)
-    lanes = counters.get("search.flat_lanes", 0)
-    total_bytes = lanes * LANE_BYTES
-    bytes_per_s = total_bytes / served.wall_s
-    bandwidth_frac = round(bytes_per_s / HBM_BYTES_PER_S, 4) if dev.type == "cuda" else None
-    share = "not a device figure" if bandwidth_frac is None else (
-        f"{100 * bandwidth_frac:.2f}% of HBM peak")
-    log(f"postings traffic: {total_bytes / 1e9:.2f} GB of decoded lanes over "
-        f"{served.wall_s:.2f}s = {bytes_per_s / 1e9:.1f} GB/s ({share})")
     result = {
         "metric": f"BM25 top-{args.k} QPS, {n_docs} docs, mixed term/bool/phrase "
         f"batch={batch}, {args.reader} reader on {device_name(dev)}"
@@ -286,7 +270,6 @@ def main(args) -> dict:
         "value": round(served.qps, 1),
         "unit": "queries/sec/chip",
         "vs_baseline": round(served.qps / base_qps, 2),
-        "bandwidth_frac": bandwidth_frac,
     }
     print(json.dumps(result), flush=True)
     print(f"# index build: {build_s:.1f}s ({n_docs / build_s:.0f} docs/s), "

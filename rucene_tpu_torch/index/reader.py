@@ -9,9 +9,10 @@ the first search that needs it (decoded or packed as
 codec/device.decoded_policy says, RUCENE_DECODED, read then; a decoded
 form also gets its dense tf planes, codec/device.add_tf_planes,
 RUCENE_PLANES, and their rows, plane_slots). Each counts one
-``reader.device_builds``. A snapshot with deletes serves that form under
-its own live mask (codec/device.with_live): one upload of the mask, no
-decode.
+``reader.device_builds`` and is timed by the ``reader.device_build``
+span; ``reader.open`` times open_directory_reader. A snapshot with
+deletes serves that form under its own live mask (codec/device.with_live):
+one upload of the mask, no decode.
 
 An IndexReader serves views of its snapshots (SegmentSnapshot.view): each
 view carries this reader's doc base and torch device and shares the rest
@@ -47,7 +48,7 @@ from rucene_tpu_torch.codec.device import (
 )
 from rucene_tpu_torch.codec.postings import PackedSegment
 from rucene_tpu_torch.search.similarity import CollectionStats
-from rucene_tpu_torch.util.metrics import METRICS
+from rucene_tpu_torch.util.metrics import METRICS, trace
 from rucene_tpu_torch.util.packing import (
     EF_TAG,
     EF_UNARY_WORDS,
@@ -133,16 +134,17 @@ class SegmentSnapshot:
         return self._device
 
     def _build_form(self, d: torch.device):
-        packed = self.packed
-        dev = build_device_segment(packed, d)
-        mf = int(packed.blk_max_freq.max()) if packed.num_blocks else 0
-        decoded, fdt = decoded_policy(packed.num_blocks, mf)
-        slots: dict[int, int] = {}
-        if decoded:
-            dev = add_decoded_planes(dev, freq_dtype=fdt)
-            dev, slots = add_tf_planes(dev, packed)
-        METRICS.incr("reader.device_builds")
-        return dev, slots
+        with trace("reader.device_build"):
+            packed = self.packed
+            dev = build_device_segment(packed, d)
+            mf = int(packed.blk_max_freq.max()) if packed.num_blocks else 0
+            decoded, fdt = decoded_policy(packed.num_blocks, mf)
+            slots: dict[int, int] = {}
+            if decoded:
+                dev = add_decoded_planes(dev, freq_dtype=fdt)
+                dev, slots = add_tf_planes(dev, packed)
+            METRICS.incr("reader.device_builds")
+            return dev, slots
 
     def view(self, doc_base: int) -> "SegmentSnapshot":
         """A reader's view: this snapshot under ``doc_base``, on this
@@ -594,5 +596,6 @@ def open_directory_reader(directory) -> IndexReader:
     touches a device until the reader is searched."""
     from rucene_tpu_torch.codec import files as segfiles
 
-    infos = segfiles.read_segments_file(directory)
-    return IndexReader([load_segment_snapshot(directory, info) for info in infos.segments])
+    with trace("reader.open"):
+        infos = segfiles.read_segments_file(directory)
+        return IndexReader([load_segment_snapshot(directory, info) for info in infos.segments])

@@ -32,6 +32,19 @@ them) and ``search.phrase_pruned_blocks`` (blocks the selection dropped);
 admission denied, or their term matches meet a plane's overflow column;
 each such row reruns whole on the host route).
 
+Stage spans of the pure phrase path (util/metrics.trace), inside the
+searcher's ``search.phrases.dispatch`` and ``search.phrases``:
+``search.phrases.select`` (the statistics, then once a leaf the rows'
+block selection and routing, with ``search.phrases.postings`` around the
+selections the memo lacks), ``search.phrases.launch`` (the candidate
+tables' uploads and pipeline, the plane dispatch, and in collect the
+plane retry of overflow rows; ``search.phrases.plane_build`` around a
+plane built on a cache miss, whichever path asks), ``search.phrases.scalar``
+(each scalar-engine call), ``search.phrases.wait`` (the copies of the
+candidate and plane results) and ``search.phrases.merge`` (the rows' hit
+lists). ``search.prewarm_planes`` times prewarm_phrase_planes. The mixed
+and span routes keep only the searcher's outer spans.
+
 Caches are module-wide as in the reference, so searchers over one segment
 share them. The plane caches and the memos hold a weak reference to the
 packed segment their key's id() names, and a hit requires it to be that
@@ -67,7 +80,7 @@ import numpy as np
 import torch
 
 from rucene_tpu_torch.codec.device import device_bytes, phrase_plane_budget
-from rucene_tpu_torch.util.metrics import METRICS
+from rucene_tpu_torch.util.metrics import METRICS, trace
 
 # position-plane cache: (id(packed), device, field, term) -> (plane,
 # overflow, weak packed-ref); denominator planes under (id(packed), device,
@@ -215,19 +228,35 @@ class PhrasePathMixin:
         )
 
     @staticmethod
-    def _phrase_blocks_for_row(leaf, field, terms, recs, budget_df: int):
-        """Candidate-driven block selection for one phrase row, memoized per
-        (segment, field, terms, budget): see _phrase_blocks_uncached."""
-        ck = (id(leaf.packed), field, tuple(terms), budget_df)
-        hit = _BLOCKSEL_CACHE.pop(ck, None)
-        if hit is not None and hit[1]() is leaf.packed:
-            _BLOCKSEL_CACHE[ck] = hit  # refresh LRU position
-            return hit[0]
-        picked = PhrasePathMixin._phrase_blocks_uncached(leaf, field, terms, recs, budget_df)
-        _BLOCKSEL_CACHE[ck] = (picked, weakref.ref(leaf.packed))
-        while len(_BLOCKSEL_CACHE) > _BLOCKSEL_CAP:
-            _BLOCKSEL_CACHE.pop(next(iter(_BLOCKSEL_CACHE)))
-        return picked
+    def _phrase_blocks_for_rows(leaf, wants, budget_df: int) -> list:
+        """Candidate-driven block selection for phrase rows, ``wants`` a
+        list of (field, terms, term records): each row's selection
+        memoized per (segment, field, terms, budget), the misses made
+        together under the ``search.phrases.postings`` span (see
+        _phrase_blocks_uncached)."""
+        out: list = [None] * len(wants)
+        misses: dict = {}  # cache key -> the rows that want it
+        for n, (field, terms, _recs) in enumerate(wants):
+            ck = (id(leaf.packed), field, tuple(terms), budget_df)
+            hit = _BLOCKSEL_CACHE.pop(ck, None)
+            if hit is not None and hit[1]() is leaf.packed:
+                _BLOCKSEL_CACHE[ck] = hit  # refresh LRU position
+                out[n] = hit[0]
+            else:
+                misses.setdefault(ck, []).append(n)
+        if misses:
+            with trace("search.phrases.postings"):
+                for ck, rows in misses.items():
+                    field, terms, recs = wants[rows[0]]
+                    picked = PhrasePathMixin._phrase_blocks_uncached(
+                        leaf, field, terms, recs, budget_df
+                    )
+                    _BLOCKSEL_CACHE[ck] = (picked, weakref.ref(leaf.packed))
+                    for n in rows:
+                        out[n] = picked
+            while len(_BLOCKSEL_CACHE) > _BLOCKSEL_CAP:
+                _BLOCKSEL_CACHE.pop(next(iter(_BLOCKSEL_CACHE)))
+        return out
 
     @staticmethod
     def _phrase_blocks_uncached(leaf, field, terms, recs, budget_df: int):
@@ -276,150 +305,162 @@ class PhrasePathMixin:
         from rucene_tpu_torch.search.phrase_device import PhraseBatch, execute_phrases_impl
 
         sim = self.similarity
-        doc_freqs, stats = self._gather_stats(rqs)
+        with trace("search.phrases.select"):
+            doc_freqs, stats = self._gather_stats(rqs)
         b_actual = len(rqs)
 
         per_query_leaf = [[] for _ in range(b_actual)]
         deferred_jobs = []  # (leaf, cand_job | None, plane_futs)
         for leaf in self.reader.leaves:
-            # ---- small-leaf shortcut: exact rows go straight to the
-            # scalar engine ----
-            direct_sc: list[int] = []
-            if leaf.max_doc < self.PHRASE_SCALAR_MAX_DOCS:
-                try:
-                    self._scalar_engine_for(leaf, sim, stats, doc_freqs)
-                    direct_sc = [i for i, rq in enumerate(rqs) if rq.phrases[0][3] == 0]
-                except RuntimeError:
-                    pass  # no native engine: keep the device pipeline
-            direct_set = set(direct_sc)
+            with trace("search.phrases.select"):
+                # ---- small-leaf shortcut: exact rows go straight to the
+                # scalar engine ----
+                direct_sc: list[int] = []
+                if leaf.max_doc < self.PHRASE_SCALAR_MAX_DOCS:
+                    try:
+                        self._scalar_engine_for(leaf, sim, stats, doc_freqs)
+                        direct_sc = [i for i, rq in enumerate(rqs) if rq.phrases[0][3] == 0]
+                    except RuntimeError:
+                        pass  # no native engine: keep the device pipeline
+                direct_set = set(direct_sc)
 
-            # ---- per-row candidate-driven block selection ----
-            blk_list, row_list, slot_list, pw_list, ws_list = [], [], [], [], []
-            fid_of = np.zeros(b_actual, np.int32)
-            absent = np.zeros(b_actual, bool)
-            sc_rows: list[int] = []
-            plane_pref: list[int] = []  # routed straight to position planes
-            total_before = 0
-            for i, rq in enumerate(rqs):
-                if i in direct_set:
-                    continue
-                field, terms, _b, _s = rq.phrases[0]
-                pf = leaf.packed.fields.get(field)
-                recs = [leaf.term_record(field, t) for t in terms] if pf else []
-                if pf is None or any(r is None for r in recs):
-                    absent[i] = True
-                    continue
-                fid_of[i] = pf.field_id
-                plane_ok = rq.phrases[0][3] == 0 and leaf.max_doc >= self.PHRASE_PLANE_MIN_DOCS
-                picked = self._phrase_blocks_for_row(
-                    leaf, field, terms, recs, self.PHRASE_ROW_DF_BUDGET
+                # ---- per-row candidate-driven block selection ----
+                blk_list, row_list, slot_list, pw_list, ws_list = [], [], [], [], []
+                fid_of = np.zeros(b_actual, np.int32)
+                absent = np.zeros(b_actual, bool)
+                sc_rows: list[int] = []
+                plane_pref: list[int] = []  # routed straight to position planes
+                total_before = 0
+                present = []  # (row, field, terms, term records)
+                for i, rq in enumerate(rqs):
+                    if i in direct_set:
+                        continue
+                    field, terms, _b, _s = rq.phrases[0]
+                    pf = leaf.packed.fields.get(field)
+                    recs = [leaf.term_record(field, t) for t in terms] if pf else []
+                    if pf is None or any(r is None for r in recs):
+                        absent[i] = True
+                        continue
+                    fid_of[i] = pf.field_id
+                    present.append((i, field, terms, recs))
+                picks = self._phrase_blocks_for_rows(
+                    leaf, [p[1:] for p in present], self.PHRASE_ROW_DF_BUDGET
                 )
-                if picked is None or len(picked[0]) > self.PHRASE_ROW_ITEM_BUDGET:
-                    sc_rows.append(i)  # truly heavy: planes or scalar
-                    continue
-                if (
-                    plane_ok
-                    and len(picked[0]) >= self.PHRASE_PLANE_ITEM_MIN
-                    and self._planes_admitted(leaf, field, terms)
-                ):
-                    plane_pref.append(i)  # mid-weight: planes beat the tables
-                    continue
-                total_before += sum(r.block_count for r in recs)
-                blocks_i, slots_i = picked
-                blk_list.append(blocks_i)
-                row_list.append(np.full(len(blocks_i), i, np.int32))
-                slot_list.append(slots_i)
-                pw_list.append(np.asarray([r.pos_width for r in recs], np.int32)[slots_i])
-                ws_list.append(np.asarray([r.pos_word_start for r in recs], np.int32)[slots_i])
-            if blk_list:
-                blocks = np.concatenate(blk_list)
-                rows_a = np.concatenate(row_list)
-                slots_a = np.concatenate(slot_list)
-                pws_a = np.concatenate(pw_list)
-                wss_a = np.concatenate(ws_list)
-            else:
-                blocks = rows_a = slots_a = pws_a = wss_a = np.zeros(0, np.int32)
-            pruned = total_before - len(blocks)
-            if pruned > 0:
-                METRICS.incr("search.phrase_pruned_blocks", pruned)
-
-            cnt_r = np.bincount(rows_a, minlength=b_actual)
-            sc_set = set(sc_rows)
-            plane_set = set(plane_pref)
-            dev_rows = [
-                i for i in range(b_actual)
-                if not absent[i] and i not in sc_set and cnt_r[i] > 0
-            ]
-            # rows with a missing term or fully-pruned work match nothing
-            for i in np.flatnonzero(absent | (cnt_r == 0)):
-                if int(i) in sc_set or int(i) in plane_set or int(i) in direct_set:
-                    continue  # answered by the plane/scalar paths
-                per_query_leaf[i].append(
-                    (leaf.doc_base, np.zeros(0, np.int32), np.zeros(0, np.float32), 0)
-                )
-
-            cand_job = None  # (bmap, dev_rows, result tensors)
-            if dev_rows:
-                bmap = {gi: li for li, gi in enumerate(dev_rows)}
-                nb = len(dev_rows)
-                n_terms = np.zeros(nb, np.int32)
-                weight = np.zeros(nb, np.float32)
-                slop = np.zeros(nb, np.int32)
-                fid = np.zeros(nb, np.int32)
-                for gi in dev_rows:
-                    li = bmap[gi]
-                    field, terms, boost, sl = rqs[gi].phrases[0]
-                    weight[li] = _idf_weight(sim, stats, doc_freqs, field, terms, boost)
-                    n_terms[li] = len(terms)
-                    slop[li] = sl
-                    fid[li] = fid_of[gi]
-                dsel = np.isin(rows_a, dev_rows)
-                d_blocks = blocks[dsel]
-                d_rows = np.asarray([bmap[gi] for gi in rows_a[dsel]], np.int32)
-                w = len(d_blocks)
-                cand_cap = min(w * 128, 65536)
-                fmax = 32
-                fwin = min(fmax, max(int(leaf.packed.blk_max_freq[d_blocks].max()), 1))
-                d = leaf.torch_device
-                cache = build_leaf_cache(leaf, sim, stats)
-                pb = PhraseBatch(
-                    wi_block=_put(d_blocks, d), wi_row=_put(d_rows, d),
-                    wi_slot=_put(slots_a[dsel], d),
-                    wi_valid=torch.ones(w, dtype=torch.bool, device=d),
-                    n_terms=_put(n_terms, d), weight=_put(weight, d, np.float32),
-                    fid=_put(fid, d), cache=_put(cache, d, np.float32),
-                    wi_pos_width=_put(pws_a[dsel], d), wi_pos_start=_put(wss_a[dsel], d),
-                    slop=_put(slop, d),
-                )
-                res = execute_phrases_impl(
-                    leaf.device, pb, k=k, cand_cap=cand_cap, fmax=fmax,
-                    slop_max=int(slop.max()), nmax=int(n_terms.max()), fwin=fwin,
-                )
-                METRICS.incr("search.phrase_device", len(dev_rows))
-                cand_job = (bmap, dev_rows, res)
-
-            # ---- heavy/mid rows: position planes; rows a plane cannot
-            # serve exactly (slop > 0, or overflow docs) join the scalar
-            # call. Queued here, collected in finish() ----
-            heavy_rows = plane_pref + [i for i in sc_rows if rqs[i].phrases[0][3] == 0]
-            pset = set(heavy_rows)
-            scalar_rows = [i for i in sc_rows if i not in pset]
-            plane_rows = []
-            for i in heavy_rows:
-                field_i, terms_i = rqs[i].phrases[0][0], rqs[i].phrases[0][1]
-                if self._planes_admitted(leaf, field_i, terms_i):
-                    plane_rows.append(i)
+                big_leaf = leaf.max_doc >= self.PHRASE_PLANE_MIN_DOCS
+                for (i, field, terms, recs), picked in zip(present, picks):
+                    plane_ok = rqs[i].phrases[0][3] == 0 and big_leaf
+                    if picked is None or len(picked[0]) > self.PHRASE_ROW_ITEM_BUDGET:
+                        sc_rows.append(i)  # truly heavy: planes or scalar
+                        continue
+                    if (
+                        plane_ok
+                        and len(picked[0]) >= self.PHRASE_PLANE_ITEM_MIN
+                        and self._planes_admitted(leaf, field, terms)
+                    ):
+                        plane_pref.append(i)  # mid-weight: planes beat the tables
+                        continue
+                    total_before += sum(r.block_count for r in recs)
+                    blocks_i, slots_i = picked
+                    blk_list.append(blocks_i)
+                    row_list.append(np.full(len(blocks_i), i, np.int32))
+                    slot_list.append(slots_i)
+                    pw_list.append(np.asarray([r.pos_width for r in recs], np.int32)[slots_i])
+                    ws_list.append(np.asarray([r.pos_word_start for r in recs], np.int32)[slots_i])
+                if blk_list:
+                    blocks = np.concatenate(blk_list)
+                    rows_a = np.concatenate(row_list)
+                    slots_a = np.concatenate(slot_list)
+                    pws_a = np.concatenate(pw_list)
+                    wss_a = np.concatenate(ws_list)
                 else:
-                    scalar_rows.append(i)
+                    blocks = rows_a = slots_a = pws_a = wss_a = np.zeros(0, np.int32)
+                pruned = total_before - len(blocks)
+                if pruned > 0:
+                    METRICS.incr("search.phrase_pruned_blocks", pruned)
+
+                cnt_r = np.bincount(rows_a, minlength=b_actual)
+                sc_set = set(sc_rows)
+                plane_set = set(plane_pref)
+                dev_rows = [
+                    i for i in range(b_actual)
+                    if not absent[i] and i not in sc_set and cnt_r[i] > 0
+                ]
+                # rows with a missing term or fully-pruned work match nothing
+                for i in np.flatnonzero(absent | (cnt_r == 0)):
+                    if int(i) in sc_set or int(i) in plane_set or int(i) in direct_set:
+                        continue  # answered by the plane/scalar paths
+                    per_query_leaf[i].append(
+                        (leaf.doc_base, np.zeros(0, np.int32), np.zeros(0, np.float32), 0)
+                    )
+
+                # ---- the candidate rows' tables ----
+                if dev_rows:
+                    bmap = {gi: li for li, gi in enumerate(dev_rows)}
+                    nb = len(dev_rows)
+                    n_terms = np.zeros(nb, np.int32)
+                    weight = np.zeros(nb, np.float32)
+                    slop = np.zeros(nb, np.int32)
+                    fid = np.zeros(nb, np.int32)
+                    for gi in dev_rows:
+                        li = bmap[gi]
+                        field, terms, boost, sl = rqs[gi].phrases[0]
+                        weight[li] = _idf_weight(sim, stats, doc_freqs, field, terms, boost)
+                        n_terms[li] = len(terms)
+                        slop[li] = sl
+                        fid[li] = fid_of[gi]
+                    dsel = np.isin(rows_a, dev_rows)
+                    d_blocks = blocks[dsel]
+                    d_rows = np.asarray([bmap[gi] for gi in rows_a[dsel]], np.int32)
+                    w = len(d_blocks)
+                    cand_cap = min(w * 128, 65536)
+                    fmax = 32
+                    fwin = min(fmax, max(int(leaf.packed.blk_max_freq[d_blocks].max()), 1))
+                    cache = build_leaf_cache(leaf, sim, stats)
+
+                # ---- heavy/mid rows: position planes; rows a plane cannot
+                # serve exactly (slop > 0, or overflow docs) join the scalar
+                # call ----
+                heavy_rows = plane_pref + [i for i in sc_rows if rqs[i].phrases[0][3] == 0]
+                pset = set(heavy_rows)
+                scalar_rows = [i for i in sc_rows if i not in pset]
+                plane_rows = []
+                for i in heavy_rows:
+                    field_i, terms_i = rqs[i].phrases[0][0], rqs[i].phrases[0][1]
+                    if self._planes_admitted(leaf, field_i, terms_i):
+                        plane_rows.append(i)
+                    else:
+                        scalar_rows.append(i)
+
+            # ---- queued here, collected in finish() ----
+            cand_job = None  # (bmap, dev_rows, result tensors)
             plane_futs = []
-            if plane_rows:
-                plane_futs, plane_spill, early_done = self._dispatch_phrase_planes(
-                    leaf, plane_rows, rqs, sim, stats, doc_freqs, k
-                )
-                scalar_rows.extend(plane_spill)
-                METRICS.incr("search.phrase_plane", len(early_done))
-                for gi, (dd, ss, hh) in early_done.items():
-                    per_query_leaf[gi].append((leaf.doc_base, dd, ss, hh))
+            if dev_rows or plane_rows:
+                with trace("search.phrases.launch"):
+                    if dev_rows:
+                        d = leaf.torch_device
+                        pb = PhraseBatch(
+                            wi_block=_put(d_blocks, d), wi_row=_put(d_rows, d),
+                            wi_slot=_put(slots_a[dsel], d),
+                            wi_valid=torch.ones(w, dtype=torch.bool, device=d),
+                            n_terms=_put(n_terms, d), weight=_put(weight, d, np.float32),
+                            fid=_put(fid, d), cache=_put(cache, d, np.float32),
+                            wi_pos_width=_put(pws_a[dsel], d), wi_pos_start=_put(wss_a[dsel], d),
+                            slop=_put(slop, d),
+                        )
+                        res = execute_phrases_impl(
+                            leaf.device, pb, k=k, cand_cap=cand_cap, fmax=fmax,
+                            slop_max=int(slop.max()), nmax=int(n_terms.max()), fwin=fwin,
+                        )
+                        METRICS.incr("search.phrase_device", len(dev_rows))
+                        cand_job = (bmap, dev_rows, res)
+                    if plane_rows:
+                        plane_futs, plane_spill, early_done = self._dispatch_phrase_planes(
+                            leaf, plane_rows, rqs, sim, stats, doc_freqs, k
+                        )
+                        scalar_rows.extend(plane_spill)
+                        METRICS.incr("search.phrase_plane", len(early_done))
+                        for gi, (dd, ss, hh) in early_done.items():
+                            per_query_leaf[gi].append((leaf.doc_base, dd, ss, hh))
 
             # ---- scalar C++ rows: host work, running while the device
             # work above is in flight ----
@@ -429,27 +470,36 @@ class PhrasePathMixin:
                 METRICS.incr("search.phrase_scalar_route", len(direct_sc))
             host_rows = scalar_rows + direct_sc
             if host_rows:
-                hits = self._scalar_fallback_batch(
-                    leaf, [rqs[i] for i in host_rows], [queries[i] for i in host_rows],
-                    sim, stats, doc_freqs, k,
-                )
-                for gi, hh in zip(host_rows, hits):
-                    per_query_leaf[gi].append((leaf.doc_base, hh.docs, hh.scores, hh.total_hits))
+                with trace("search.phrases.scalar"):
+                    hits = self._scalar_fallback_batch(
+                        leaf, [rqs[i] for i in host_rows], [queries[i] for i in host_rows],
+                        sim, stats, doc_freqs, k,
+                    )
+                    for gi, hh in zip(host_rows, hits):
+                        per_query_leaf[gi].append(
+                            (leaf.doc_base, hh.docs, hh.scores, hh.total_hits)
+                        )
             deferred_jobs.append((leaf, cand_job, plane_futs))
 
         def finish() -> list:
             for leaf, cand_job, plane_futs in deferred_jobs:
                 overflow_rows: list[int] = []
-                if cand_job is not None:
-                    bmap, dev_rows, res = cand_job
-                    s, d, h, ov = (x.cpu().numpy() for x in res)
-                    for gi in dev_rows:
-                        li = bmap[gi]
-                        if ov[li]:
-                            overflow_rows.append(gi)
-                        else:
-                            per_query_leaf[gi].append((leaf.doc_base, d[li], s[li], int(h[li])))
-                done, spill = self._plane_collect(plane_futs)
+                done: dict = {}
+                spill: list[int] = []
+                if cand_job is not None or plane_futs:
+                    with trace("search.phrases.wait"):
+                        if cand_job is not None:
+                            bmap, dev_rows, res = cand_job
+                            s, d, h, ov = (x.cpu().numpy() for x in res)
+                            for gi in dev_rows:
+                                li = bmap[gi]
+                                if ov[li]:
+                                    overflow_rows.append(gi)
+                                else:
+                                    per_query_leaf[gi].append(
+                                        (leaf.doc_base, d[li], s[li], int(h[li]))
+                                    )
+                        done, spill = self._plane_collect(plane_futs)
                 METRICS.incr("search.phrase_plane", len(done))
                 for gi, (dd, ss, hh) in done.items():
                     per_query_leaf[gi].append((leaf.doc_base, dd, ss, hh))
@@ -460,9 +510,10 @@ class PhrasePathMixin:
                 pset2 = set(plane_retry)
                 late_scalar = [i for i in overflow_rows if i not in pset2]
                 if plane_retry:
-                    done2, spill2 = self._search_phrase_planes(
-                        leaf, plane_retry, rqs, sim, stats, doc_freqs, k
-                    )
+                    with trace("search.phrases.launch"):
+                        done2, spill2 = self._search_phrase_planes(
+                            leaf, plane_retry, rqs, sim, stats, doc_freqs, k
+                        )
                     METRICS.incr("search.phrase_plane", len(done2))
                     for gi, (dd, ss, hh) in done2.items():
                         per_query_leaf[gi].append((leaf.doc_base, dd, ss, hh))
@@ -470,13 +521,15 @@ class PhrasePathMixin:
                 late_scalar = late_scalar + spill
                 if late_scalar:
                     METRICS.incr("search.phrase_host_fallback", len(late_scalar))
-                    hits = self._scalar_fallback_batch(
-                        leaf, [rqs[i] for i in late_scalar], [queries[i] for i in late_scalar],
-                        sim, stats, doc_freqs, k,
-                    )
+                    with trace("search.phrases.scalar"):
+                        hits = self._scalar_fallback_batch(
+                            leaf, [rqs[i] for i in late_scalar],
+                            [queries[i] for i in late_scalar], sim, stats, doc_freqs, k,
+                        )
                     for gi, hh in zip(late_scalar, hits):
                         per_query_leaf[gi].append((leaf.doc_base, hh.docs, hh.scores, hh.total_hits))
-            return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b_actual)]
+            with trace("search.phrases.merge"):
+                return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b_actual)]
 
         if _defer:
             return finish
@@ -572,22 +625,24 @@ class PhrasePathMixin:
         rec = leaf.term_record(field, term)
         if rec is None:
             return None
-        blocks = np.arange(rec.block_start, rec.block_start + rec.block_count, dtype=np.int32)
-        drop_dead_planes()
-        budget = self._plane_budget_bytes(leaf)
-        p_words = self._plane_words(leaf, field)
-        new_bytes = leaf.device.max_doc_padded * (p_words * 4 + 1)  # plane + overflow
-        while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget - new_bytes:
-            _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
-        fwin = min(FMAX, max(int(leaf.packed.blk_max_freq[blocks].max()), 1)) if len(blocks) else 1
-        plane, overflow = build_position_plane(
-            leaf.device, _put(blocks, leaf.torch_device), rec.pos_width,
-            rec.pos_word_start, words=p_words, fwin=fwin,
-        )
-        METRICS.incr("search.phrase_plane_build")
-        _PLANE_CACHE[key] = (plane, overflow, weakref.ref(leaf.packed))
-        while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget:
-            _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
+        with trace("search.phrases.plane_build"):
+            blocks = np.arange(rec.block_start, rec.block_start + rec.block_count, dtype=np.int32)
+            drop_dead_planes()
+            budget = self._plane_budget_bytes(leaf)
+            p_words = self._plane_words(leaf, field)
+            new_bytes = leaf.device.max_doc_padded * (p_words * 4 + 1)  # plane + overflow
+            while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget - new_bytes:
+                _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
+            fwin = (min(FMAX, max(int(leaf.packed.blk_max_freq[blocks].max()), 1))
+                    if len(blocks) else 1)
+            plane, overflow = build_position_plane(
+                leaf.device, _put(blocks, leaf.torch_device), rec.pos_width,
+                rec.pos_word_start, words=p_words, fwin=fwin,
+            )
+            METRICS.incr("search.phrase_plane_build")
+            _PLANE_CACHE[key] = (plane, overflow, weakref.ref(leaf.packed))
+            while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget:
+                _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
         return plane, overflow
 
     def _phrase_planes_for_many(self, leaf, wants, admit: bool = False):
@@ -625,24 +680,31 @@ class PhrasePathMixin:
         resident terms of at least min_blocks blocks (PHRASE_PLANE_ITEM_MIN
         by default) on every leaf of PHRASE_PLANE_MIN_DOCS or more. After
         it the query path builds no plane for those terms. Returns the
-        number of planes built or found cached. Call at index load."""
+        number of planes built or found cached. Call at index load.
+
+        Timed as ``search.prewarm_planes``; a leaf's device form is built
+        first, under its own ``reader.device_build`` span, so that the two
+        spans do not nest."""
         if min_blocks is None:
             min_blocks = self.PHRASE_PLANE_ITEM_MIN
+        leaves = [
+            leaf for leaf in self.reader.leaves
+            if leaf.max_doc >= self.PHRASE_PLANE_MIN_DOCS and field in leaf.packed.fields
+        ]
+        for leaf in leaves:
+            _ = leaf.device
         built = 0
-        for leaf in self.reader.leaves:
-            if leaf.max_doc < self.PHRASE_PLANE_MIN_DOCS:
-                continue
-            pf = leaf.packed.fields.get(field)
-            if pf is None:
-                continue
-            ordered, _res = self._plane_resident_terms(leaf, field)
-            wants = [
-                (field, t) for t in ordered
-                if int(pf.block_count[pf.term_ord[t]]) >= min_blocks
-            ]
-            if wants:
-                got = self._phrase_planes_for_many(leaf, wants)
-                built += sum(1 for v in got.values() if v is not None)
+        with trace("search.prewarm_planes"):
+            for leaf in leaves:
+                pf = leaf.packed.fields[field]
+                ordered, _res = self._plane_resident_terms(leaf, field)
+                wants = [
+                    (field, t) for t in ordered
+                    if int(pf.block_count[pf.term_ord[t]]) >= min_blocks
+                ]
+                if wants:
+                    got = self._phrase_planes_for_many(leaf, wants)
+                    built += sum(1 for v in got.values() if v is not None)
         return built
 
     def _denom_plane_for(self, leaf, fid: int, cache_row: np.ndarray):
@@ -739,7 +801,6 @@ class PhrasePathMixin:
                         self._leaf_filters(leaf, *self._range_filter_tables(sub, nb))
                         if any(rq.ranges for rq in sub) else None
                     )
-                    METRICS.incr("search.flat_lanes", int(work[5].sum()) * 128)
                     fq = make_flat_batch(work, n_req, min_should, cache, dev, dedupe=True)
                     combine = build_combine_batch(
                         work, nb, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc,

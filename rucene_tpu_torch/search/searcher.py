@@ -33,6 +33,18 @@ batch's host phases are the reference's trace spans (util/metrics.trace):
 ``search.mixed.dispatch`` around the queueing, and ``search.device``,
 ``search.phrases``, ``search.mixed``, ``search.synonyms`` and
 ``search.span_unordered`` around each path's finish in collect().
+Inside the device path's spans, stage spans of the port's own (none
+inside another of its kind, none adding a device sync): in the dispatch
+``search.device.tables`` (statistics, clause tables, row classes, each
+leaf's block tables, work lists and plane slots),
+``search.device.conj_prune`` (prune_conjunctions),
+``search.device.combine_tables`` (build_combine_batch) and
+``search.device.launch`` (uploads and executor calls of every route); in
+the collect ``search.device.wait`` (each copy of a result to the host)
+and ``search.device.merge`` (the rows' hit lists), and where WAND's
+second pass reruns rows, its combine tables and launch. The phrase path
+has its own (search/phrase_path.py); the mixed, synonym and span paths
+keep only their outer spans.
 
 Beside search_batch: search_sorted, search_sorted_early_terminated and
 search_collapse (search/sorted_path.py), explain (search/explain.py) and,
@@ -503,39 +515,40 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         score-combine overrides or ranges, no single, pair or plane route
         under prune=True, and None decided per sub-batch after the split."""
         sim = self.similarity
-        doc_freqs, stats = _stats if _stats is not None else self._gather_stats(rqs, plans)
         b = len(rqs)
-        t = max(max((len(rq.all_slots()) for rq in rqs), default=1), 1)
-        weight, occur, n_required, min_should, match_all_rows, boosts = build_clause_tables(
-            rqs, sim, doc_freqs, stats, b, t, plans=plans
-        )
-        plain = all(rq.plain for rq in rqs)
-        if not plain:
-            prune = False  # WAND bounds do not model the score-combine overrides
-        pure_rows = [self._pure_row(rq, weight[i]) for i, rq in enumerate(rqs)]
-        # total_hits of a single-term row is its doc_freq: exact only
-        # when no leaf has deletes
-        no_deletes = all(lf.live is None for lf in self.reader.leaves)
-        single_rows = [
-            p and no_deletes and len(rq.clauses) == 1 for p, rq in zip(pure_rows, rqs)
-        ]
-        pair_rows = self._pair_rows(rqs, weight) if prune is not True else [False] * b
-        # RowExtras exist only on the flat executor: a batch holding a
-        # dismax, constant-score or boosting row takes no tf planes
-        plane_rows = (
-            self._plane_rows(rqs, plans, single_rows) if plain and prune is not True
-            else [False] * b
-        )
-        if any(rq.ranges for rq in rqs):
-            prune = False  # nor the filter planes' constant scores
+        with trace("search.device.tables"):
+            doc_freqs, stats = _stats if _stats is not None else self._gather_stats(rqs, plans)
+            t = max(max((len(rq.all_slots()) for rq in rqs), default=1), 1)
+            weight, occur, n_required, min_should, match_all_rows, boosts = build_clause_tables(
+                rqs, sim, doc_freqs, stats, b, t, plans=plans
+            )
+            plain = all(rq.plain for rq in rqs)
+            if not plain:
+                prune = False  # WAND bounds do not model the score-combine overrides
+            pure_rows = [self._pure_row(rq, weight[i]) for i, rq in enumerate(rqs)]
+            # total_hits of a single-term row is its doc_freq: exact only
+            # when no leaf has deletes
+            no_deletes = all(lf.live is None for lf in self.reader.leaves)
+            single_rows = [
+                p and no_deletes and len(rq.clauses) == 1 for p, rq in zip(pure_rows, rqs)
+            ]
+            pair_rows = self._pair_rows(rqs, weight) if prune is not True else [False] * b
+            # RowExtras exist only on the flat executor: a batch holding a
+            # dismax, constant-score or boosting row takes no tf planes
+            plane_rows = (
+                self._plane_rows(rqs, plans, single_rows) if plain and prune is not True
+                else [False] * b
+            )
+            if any(rq.ranges for rq in rqs):
+                prune = False  # nor the filter planes' constant scores
 
-        # large corpora: split by row class (the reference's classes 0-4)
-        # so single-term rows skip the combine, pure disjunctions skip the
-        # clause counts, and pair and plane rows take their own routes
-        cls = [
-            4 if pl else 0 if s and not prune else 3 if pr else 1 if p else 2
-            for s, p, pr, pl in zip(single_rows, pure_rows, pair_rows, plane_rows)
-        ]
+            # large corpora: split by row class (the reference's classes 0-4)
+            # so single-term rows skip the combine, pure disjunctions skip the
+            # clause counts, and pair and plane rows take their own routes
+            cls = [
+                4 if pl else 0 if s and not prune else 3 if pr else 1 if p else 2
+                for s, p, pr, pl in zip(single_rows, pure_rows, pair_rows, plane_rows)
+            ]
         if (
             b > 1
             and len(set(cls)) > 1
@@ -559,34 +572,40 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
 
             return finish_split
 
-        # range clauses ride as filter planes: a batch in which a doc may
-        # match through its ranges alone has no candidate lane for it, so
-        # it takes the dense branch whatever else picks the strategy
-        filter_tables, strategy = None, os.environ.get("RUCENE_STRATEGY", "auto")
-        if any(rq.ranges for rq in rqs):
-            filter_tables = self._range_filter_tables(rqs, b)
-            if not self._ranges_complete(rqs):
-                strategy = "dense"
-        # conjunction pruning intersects required term clauses only: a
-        # range meets its requirement through its plane, not lanes
-        n_required_terms = np.array(
-            [sum(c.occur in (Occur.MUST, Occur.FILTER) for c in rq.clauses) for rq in rqs],
-            np.int32,
-        )
-        pure = all(pure_rows)
-        # a match-all row has no clause, so it is never single (nor pure,
-        # pair or plane): a batch holding one takes the flat executor
-        single = all(single_rows) and not prune
-        plane = all(plane_rows)
-        pair2 = all(pair_rows) and not single and not plane
-        if prune is None:
-            prune = (not pair2) and self._auto_prune_decision(rqs, k)
-            if prune:
-                METRICS.incr("search.auto_prune_batches")
-        if not (plane or pair2):  # those two count per leaf call
-            METRICS.incr("route.single" if single else "route.flat", b)
-        extras, with_dismax = (None, False) if plain else _row_extras(rqs, self.device)
-        boosts_t = _put(boosts, self.device, np.float32) if match_all_rows.any() else None
+        with trace("search.device.tables"):
+            # range clauses ride as filter planes: a batch in which a doc may
+            # match through its ranges alone has no candidate lane for it, so
+            # it takes the dense branch whatever else picks the strategy
+            filter_tables, strategy = None, os.environ.get("RUCENE_STRATEGY", "auto")
+            if any(rq.ranges for rq in rqs):
+                filter_tables = self._range_filter_tables(rqs, b)
+                if not self._ranges_complete(rqs):
+                    strategy = "dense"
+            # conjunction pruning intersects required term clauses only: a
+            # range meets its requirement through its plane, not lanes
+            n_required_terms = np.array(
+                [sum(c.occur in (Occur.MUST, Occur.FILTER) for c in rq.clauses) for rq in rqs],
+                np.int32,
+            )
+            pure = all(pure_rows)
+            # a match-all row has no clause, so it is never single (nor pure,
+            # pair or plane): a batch holding one takes the flat executor
+            single = all(single_rows) and not prune
+            plane = all(plane_rows)
+            pair2 = all(pair_rows) and not single and not plane
+            if prune is None:
+                prune = (not pair2) and self._auto_prune_decision(rqs, k)
+                if prune:
+                    METRICS.incr("search.auto_prune_batches")
+            if not (plane or pair2):  # those two count per leaf call
+                METRICS.incr("route.single" if single else "route.flat", b)
+        extras, with_dismax, boosts_t = None, False, None
+        if not plain or match_all_rows.any():  # the rows' extras and match-all boosts go up
+            with trace("search.device.launch"):
+                if not plain:
+                    extras, with_dismax = _row_extras(rqs, self.device)
+                if match_all_rows.any():
+                    boosts_t = _put(boosts, self.device, np.float32)
         if (
             self.combine_segments and len(self.reader.leaves) > 1
             and self._deadline is None and not pair2 and not plane
@@ -600,16 +619,29 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         for leaf in self.reader.leaves:
             if self._past_deadline():
                 break  # partial results: the leaves left are skipped
-            cache = build_leaf_cache(leaf, sim, stats)
+            with trace("search.device.tables"):
+                cache = build_leaf_cache(leaf, sim, stats)
+                # the flat work list, unless the planes, the pair route or
+                # the decoded single route take the batch
+                flat = not (plane or pair2 or (single and leaf.device.docs_dec is not None))
+                if not plane:
+                    block_start, block_count, field_id = build_leaf_tables(
+                        leaf, rqs, b, t, plans=plans
+                    )
+                if single:
+                    lane_cnt = np.array(
+                        [leaf_rows_for(leaf, rq, plans[i])["df"][0] for i, rq in enumerate(rqs)],
+                        np.int32,
+                    )
+                if flat:
+                    work = build_flat_work(block_start, block_count, weight, field_id, occur)
+                    filters = self._leaf_filters(leaf, *filter_tables) if filter_tables else None
             if plane:
                 res = self._run_planes(
                     leaf, rqs, weight, occur, cache, n_required, min_should, k, plans
                 )
                 pending.append((leaf.doc_base, res, None))
                 continue
-            block_start, block_count, field_id = build_leaf_tables(
-                leaf, rqs, b, t, plans=plans
-            )
             if pair2:
                 res = self._run_pair(
                     leaf, rqs, weight, field_id, block_start, block_count, cache,
@@ -617,22 +649,16 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
                 )
                 pending.append((leaf.doc_base, res, None))
                 continue
-            if single:
-                lane_cnt = np.array(
-                    [leaf_rows_for(leaf, rq, plans[i])["df"][0] for i, rq in enumerate(rqs)],
-                    np.int32,
+            if not flat:  # single, on a decoded leaf
+                res = self._run_single_dec(
+                    leaf, block_start[:, 0], block_count[:, 0], weight[:, 0], lane_cnt, cache, k,
                 )
-                if leaf.device.docs_dec is not None:
-                    res = self._run_single_dec(
-                        leaf, block_start[:, 0], block_count[:, 0], weight[:, 0],
-                        lane_cnt, cache, k,
-                    )
-                    pending.append((leaf.doc_base, res, None))
-                    continue
-            work = build_flat_work(block_start, block_count, weight, field_id, occur)
-            work, _ = prune_conjunctions(
-                work, n_required_terms, (leaf.packed.blk_first_doc, leaf.packed.blk_last_doc),
-            )
+                pending.append((leaf.doc_base, res, None))
+                continue
+            with trace("search.device.conj_prune"):
+                work, _ = prune_conjunctions(
+                    work, n_required_terms, (leaf.packed.blk_first_doc, leaf.packed.blk_last_doc),
+                )
             if single:
                 res = self._run_single_view(
                     leaf.device, work, lane_cnt, cache, n_required, min_should, k
@@ -643,26 +669,30 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
                     n_required, min_should, k, pure,
                 )
             else:
-                filters = self._leaf_filters(leaf, *filter_tables) if filter_tables else None
                 res = self._run_work(
                     leaf.device, _blk_ranges(leaf), work[:6], cache, n_required, min_should, k,
                     pure, extras, with_dismax, filters=filters, strategy=strategy,
                 )
-            ma = execute_match_all(leaf.device, boosts_t, k) if boosts_t is not None else None
+            ma = None
+            if boosts_t is not None:
+                with trace("search.device.launch"):
+                    ma = execute_match_all(leaf.device, boosts_t, k)
             pending.append((leaf.doc_base, res, ma))
 
         def finish() -> list[TopDocs]:
-            per_query_leaf: list[list] = [[] for _ in range(b)]
-            for doc_base, res, ma in pending:
-                s, d, h = _host_result(res)
-                if ma is not None:
-                    ms, mdoc, mh = (x.cpu().numpy() for x in ma)
-                    s = np.where(match_all_rows[:, None], ms, s)
-                    d = np.where(match_all_rows[:, None], mdoc, d)
-                    h = np.where(match_all_rows, mh, h)
-                for i in range(b):
-                    per_query_leaf[i].append((doc_base, d[i], s[i], int(h[i])))
-            return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
+            got = [(doc_base, _host_result(res), None if ma is None else _host_result(ma))
+                   for doc_base, res, ma in pending]
+            with trace("search.device.merge"):
+                per_query_leaf: list[list] = [[] for _ in range(b)]
+                for doc_base, (s, d, h), ma in got:
+                    if ma is not None:
+                        ms, mdoc, mh = ma
+                        s = np.where(match_all_rows[:, None], ms, s)
+                        d = np.where(match_all_rows[:, None], mdoc, d)
+                        h = np.where(match_all_rows, mh, h)
+                    for i in range(b):
+                        per_query_leaf[i].append((doc_base, d[i], s[i], int(h[i])))
+                return [self._merge_leaf_hits(per_query_leaf[i], k) for i in range(b)]
 
         return finish
 
@@ -712,40 +742,42 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         budget."""
         dev = leaf.device
         b, t = weight.shape
-        slot = np.full((b, t), -1, np.int32)
-        fid = np.zeros((b, t), np.int32)
-        for i, rq in enumerate(rqs):
-            row = leaf_rows_for(leaf, rq, plans[i] if plans else None)
-            n = len(row["pslot"])
-            slot[i, :n] = row["pslot"]
-            fid[i, :n] = row["fid"]
-        # occur -> count encoding, inert where the slot is (padding, or a
-        # term absent from this leaf: a required one then matches nothing)
-        kind = np.select(
-            [(occur == int(Occur.MUST)) | (occur == int(Occur.FILTER)),
-             occur == int(Occur.SHOULD), occur == int(Occur.MUST_NOT)],
-            [ENC_REQUIRED, ENC_SHOULD, ENC_NOT], 0,
-        )
-        on = slot >= 0
-        kind = np.where(on, kind, 0)
-        fids = np.unique(fid[on])
-        same_fid = int(fids[0]) if len(fids) == 1 else (0 if len(fids) == 0 else -1)
-        METRICS.incr("route.plane_rows", b)
-        cvp = cval_plane_for(dev, cache)
-        d = dev.device
-        parts = []
-        rows_per = plane_row_chunk(b, dev.max_doc_padded)
-        for s in range(0, b, rows_per):
-            e = s + rows_per
-            pb = PlaneBatch(
-                slot=_put(slot[s:e], d), kindenc=_put(kind[s:e], d),
-                weight=_put(weight[s:e], d, np.float32), fid=_put(fid[s:e], d),
-                n_required=_put(n_required[s:e], d), min_should=_put(min_should[s:e], d),
+        with trace("search.device.tables"):
+            slot = np.full((b, t), -1, np.int32)
+            fid = np.zeros((b, t), np.int32)
+            for i, rq in enumerate(rqs):
+                row = leaf_rows_for(leaf, rq, plans[i] if plans else None)
+                n = len(row["pslot"])
+                slot[i, :n] = row["pslot"]
+                fid[i, :n] = row["fid"]
+            # occur -> count encoding, inert where the slot is (padding, or a
+            # term absent from this leaf: a required one then matches nothing)
+            kind = np.select(
+                [(occur == int(Occur.MUST)) | (occur == int(Occur.FILTER)),
+                 occur == int(Occur.SHOULD), occur == int(Occur.MUST_NOT)],
+                [ENC_REQUIRED, ENC_SHOULD, ENC_NOT], 0,
             )
-            parts.append(execute_planes(dev.tf_planes, cvp, dev.live, pb, k, same_fid))
-        if len(parts) == 1:
-            return parts[0]
-        return tuple(torch.cat(x) for x in zip(*parts))
+            on = slot >= 0
+            kind = np.where(on, kind, 0)
+            fids = np.unique(fid[on])
+            same_fid = int(fids[0]) if len(fids) == 1 else (0 if len(fids) == 0 else -1)
+        METRICS.incr("route.plane_rows", b)
+        with trace("search.device.launch"):
+            cvp = cval_plane_for(dev, cache)
+            d = dev.device
+            parts = []
+            rows_per = plane_row_chunk(b, dev.max_doc_padded)
+            for s in range(0, b, rows_per):
+                e = s + rows_per
+                pb = PlaneBatch(
+                    slot=_put(slot[s:e], d), kindenc=_put(kind[s:e], d),
+                    weight=_put(weight[s:e], d, np.float32), fid=_put(fid[s:e], d),
+                    n_required=_put(n_required[s:e], d), min_should=_put(min_should[s:e], d),
+                )
+                parts.append(execute_planes(dev.tf_planes, cvp, dev.live, pb, k, same_fid))
+            if len(parts) == 1:
+                return parts[0]
+            return tuple(torch.cat(x) for x in zip(*parts))
 
     def _run_pair(self, leaf, rqs, weight, field_id, block_start, block_count, cache,
                   n_required, min_should, occur, k):
@@ -754,64 +786,66 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         the flat executor (their block counts only), merged per row."""
         dev = leaf.device
         d = dev.device
-        work, ph, bad_rows = build_pair_work(
-            leaf, rqs, weight, field_id, block_start, block_count, len(rqs)
-        )
+        with trace("search.device.tables"):
+            work, ph, bad_rows = build_pair_work(
+                leaf, rqs, weight, field_id, block_start, block_count, len(rqs)
+            )
         METRICS.incr("route.pair_rows", len(rqs) - len(bad_rows))
-        METRICS.incr("search.flat_lanes", int(work[6]) * 128)
-        q = make_flat_batch(work, n_required, min_should, cache, dev)
-        max_p = ph.pop("max_lanes_p") // 128
-        max_s = ph.pop("max_lanes_s") // 128
-        pb = PairBatch(**{name: _put(a, d, a.dtype) for name, a in ph.items()})
-        same_field = all(rq.clauses[0].term.field == rq.clauses[1].term.field for rq in rqs)
-        res = execute_flat_pair(
-            dev, q, pb, k, max_p, max_s, with_live=leaf.live is not None,
-            same_field=same_field,
-        )
+        with trace("search.device.launch"):
+            q = make_flat_batch(work, n_required, min_should, cache, dev)
+            max_p = ph.pop("max_lanes_p") // 128
+            max_s = ph.pop("max_lanes_s") // 128
+            pb = PairBatch(**{name: _put(a, d, a.dtype) for name, a in ph.items()})
+            same_field = all(rq.clauses[0].term.field == rq.clauses[1].term.field for rq in rqs)
+            res = execute_flat_pair(
+                dev, q, pb, k, max_p, max_s, with_live=leaf.live is not None,
+                same_field=same_field,
+            )
         if not bad_rows:
             return res
         METRICS.incr("search.pair_overflow_rows", len(bad_rows))
         bad = np.zeros(len(rqs), bool)
         bad[bad_rows] = True
-        work2 = build_flat_work(
-            block_start, np.where(bad[:, None], block_count, 0), weight, field_id, occur
-        )
+        with trace("search.device.tables"):
+            work2 = build_flat_work(
+                block_start, np.where(bad[:, None], block_count, 0), weight, field_id, occur
+            )
         res2 = self._run_work(
             dev, _blk_ranges(leaf), work2[:6], cache, n_required, min_should, k, False
         )
-        bad_t = _put(bad, d, np.bool_)
-        return tuple(
-            torch.where(bad_t[:, None] if x.dim() == 2 else bad_t, y, x)
-            for x, y in zip(res, res2)
-        )
+        with trace("search.device.launch"):
+            bad_t = _put(bad, d, np.bool_)
+            return tuple(
+                torch.where(bad_t[:, None] if x.dim() == 2 else bad_t, y, x)
+                for x, y in zip(res, res2)
+            )
 
     def _run_single_view(self, dev, work, lane_cnt, cache, n_required, min_should, k):
         """Single-term rows over a leaf's flat work list (a packed leaf's
         route, through the scoring decode): per-row top-k over the row's
         own item extent (executor.execute_flat_single)."""
         wi_row, n = work[1], work[6]
-        METRICS.incr("search.flat_lanes", int(n) * 128)
-        rows = np.arange(len(lane_cnt))
-        starts = np.searchsorted(wi_row[:n], rows)
-        counts = np.searchsorted(wi_row[:n], rows, side="right") - starts
-        q = make_flat_batch(work, n_required, min_should, cache, dev, dedupe=True)
-        return execute_flat_single(
-            dev, q, _put(starts, dev.device), _put(counts, dev.device),
-            _put(lane_cnt, dev.device), k, max(int(counts.max()), 1),
-        )
+        with trace("search.device.launch"):
+            rows = np.arange(len(lane_cnt))
+            starts = np.searchsorted(wi_row[:n], rows)
+            counts = np.searchsorted(wi_row[:n], rows, side="right") - starts
+            q = make_flat_batch(work, n_required, min_should, cache, dev, dedupe=True)
+            return execute_flat_single(
+                dev, q, _put(starts, dev.device), _put(counts, dev.device),
+                _put(lane_cnt, dev.device), k, max(int(counts.max()), 1),
+            )
 
     def _run_single_dec(self, leaf, bs, bc, w_row, lane_cnt, cache, k):
         """Single-term rows on a decoded leaf: the work list is expanded on
         the device from per-row block ranges
         (executor.execute_flat_single_dec)."""
         dev = leaf.device
-        n = int(bc.sum())
-        METRICS.incr("search.flat_lanes", n * 128)
-        return execute_flat_single_dec(
-            dev, cval_table_for(dev, cache), _put(bs, dev.device), _put(bc, dev.device),
-            _put(w_row, dev.device, np.float32), _put(lane_cnt, dev.device), n, k,
-            max(int(bc.max()), 1),
-        )
+        with trace("search.device.launch"):
+            return execute_flat_single_dec(
+                dev, cval_table_for(dev, cache), _put(bs, dev.device), _put(bc, dev.device),
+                _put(w_row, dev.device, np.float32), _put(lane_cnt, dev.device), int(bc.sum()),
+                k, max(int(bc.max()), 1),
+            )
 
     @staticmethod
     def _run_work(dev, blk_ranges, arrays, cache, n_required, min_should, k, pure,
@@ -823,18 +857,19 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         if strategy is None:
             strategy = os.environ.get("RUCENE_STRATEGY", "auto")
         n_items = len(arrays[0])
-        METRICS.incr("search.flat_lanes", int(arrays[5].sum()) * 128)
         dense = dense_strategy(len(n_required), dev.max_doc_padded, n_items, strategy)
         combine = None
         if dense:
-            combine = build_combine_batch(
-                arrays, len(n_required), *blk_ranges, dev.max_doc_padded, dev.device
+            with trace("search.device.combine_tables"):
+                combine = build_combine_batch(
+                    arrays, len(n_required), *blk_ranges, dev.max_doc_padded, dev.device
+                )
+        with trace("search.device.launch"):
+            q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
+            return execute_flat_impl(
+                dev, q, k, pure_disjunction=pure, combine=combine, extras=extras,
+                with_dismax=with_dismax, filters=filters,
             )
-        q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
-        return execute_flat_impl(
-            dev, q, k, pure_disjunction=pure, combine=combine, extras=extras,
-            with_dismax=with_dismax, filters=filters,
-        )
 
     def _run_pruned_view(self, dev, blk_ranges, blk_max_freq, work, cache, n_required,
                          min_should, k, pure):
@@ -854,31 +889,32 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         w = len(wi_block)
         b_rows = len(n_required)
         n_blocks = len(blk_max_freq)
-        # upper bound per item: w * bmf / (bmf + the field's least cache value)
-        bmf = blk_max_freq[np.clip(wi_block, 0, max(n_blocks - 1, 0))].astype(
-            np.float32
-        ) if n_blocks else np.zeros(w, np.float32)
-        cval_min = cache.min(axis=1)[np.clip(wi_fid, 0, cache.shape[0] - 1)]
-        with np.errstate(invalid="ignore"):
-            ub = np.where(wi_valid, wi_weight * bmf / (bmf + cval_min), -np.inf)
+        with trace("search.device.tables"):
+            # upper bound per item: w * bmf / (bmf + the field's least cache value)
+            bmf = blk_max_freq[np.clip(wi_block, 0, max(n_blocks - 1, 0))].astype(
+                np.float32
+            ) if n_blocks else np.zeros(w, np.float32)
+            cval_min = cache.min(axis=1)[np.clip(wi_fid, 0, cache.shape[0] - 1)]
+            with np.errstate(invalid="ignore"):
+                ub = np.where(wi_valid, wi_weight * bmf / (bmf + cval_min), -np.inf)
 
-        bound = _wand_bound(ub, wi_row, wi_tslot, wi_valid, b_rows)
+            bound = _wand_bound(ub, wi_row, wi_tslot, wi_valid, b_rows)
 
-        # prunable rows: pure disjunction, min_should <= 1
-        prunable_rows = (n_required == 0) & (min_should <= 1)
-        item_prunable = prunable_rows[wi_row] & wi_valid & (wi_enc == ENC_SHOULD)
+            # prunable rows: pure disjunction, min_should <= 1
+            prunable_rows = (n_required == 0) & (min_should <= 1)
+            item_prunable = prunable_rows[wi_row] & wi_valid & (wi_enc == ENC_SHOULD)
 
-        # pass-1 selection: per row, highest-ub items until >= 4k docs seen
-        order = np.lexsort((-ub, wi_row))  # by row, ub desc
-        cnt_sorted = np.where(item_prunable[order], 128, 0)
-        row_sorted = wi_row[order]
-        csum = np.cumsum(cnt_sorted)
-        row_start = np.searchsorted(row_sorted, row_sorted, side="left")
-        within = csum - csum[row_start] + cnt_sorted[row_start]
-        keep_sorted = within <= max(4 * k, 512)
-        pass1 = np.ones(w, dtype=bool)
-        pass1[order[item_prunable[order] & ~keep_sorted]] = False  # deferred items
-        pass1 &= wi_valid
+            # pass-1 selection: per row, highest-ub items until >= 4k docs seen
+            order = np.lexsort((-ub, wi_row))  # by row, ub desc
+            cnt_sorted = np.where(item_prunable[order], 128, 0)
+            row_sorted = wi_row[order]
+            csum = np.cumsum(cnt_sorted)
+            row_start = np.searchsorted(row_sorted, row_sorted, side="left")
+            within = csum - csum[row_start] + cnt_sorted[row_start]
+            keep_sorted = within <= max(4 * k, 512)
+            pass1 = np.ones(w, dtype=bool)
+            pass1[order[item_prunable[order] & ~keep_sorted]] = False  # deferred items
+            pass1 &= wi_valid
 
         if pass1.sum() == wi_valid.sum():  # nothing to prune
             return self._run_work(dev, blk_ranges, work[:6], cache, n_required, min_should, k,
@@ -919,64 +955,72 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         from rucene_tpu_torch.index.combined import build_combined_tables
 
         leaves = self.reader.leaves
-        view = self._combined_view()
         sim = self.similarity
         b = len(rqs)
-        cache = np.zeros((max(len(view.field_gid), 1), 256), np.float32)
-        for name, g in view.field_gid.items():
-            has_norms = any(name in leaf.packed.norms for leaf in leaves)
-            cache[g] = sim.cache_row(stats.get(name) if has_norms else None)
-        block_start, block_count, field_id = build_combined_tables(view, leaves, rqs, b, t)
-        length = view.n_leaves
-        work = build_flat_work(
-            block_start, block_count, np.repeat(weight, length, axis=1), field_id,
-            np.repeat(occur, length, axis=1),
-        )
-        # tslot -> clause id: a clause's blocks in every leaf intersect as one
-        work = work[:7] + (work[7] // length,)
-        blk_ranges = (view.blk_first_host, view.blk_last_host)
-        work, _ = prune_conjunctions(work, n_required_terms, blk_ranges)
+        with trace("search.device.tables"):
+            view = self._combined_view()
+            cache = np.zeros((max(len(view.field_gid), 1), 256), np.float32)
+            for name, g in view.field_gid.items():
+                has_norms = any(name in leaf.packed.norms for leaf in leaves)
+                cache[g] = sim.cache_row(stats.get(name) if has_norms else None)
+            block_start, block_count, field_id = build_combined_tables(view, leaves, rqs, b, t)
+            length = view.n_leaves
+            work = build_flat_work(
+                block_start, block_count, np.repeat(weight, length, axis=1), field_id,
+                np.repeat(occur, length, axis=1),
+            )
+            # tslot -> clause id: a clause's blocks in every leaf intersect as one
+            work = work[:7] + (work[7] // length,)
+            blk_ranges = (view.blk_first_host, view.blk_last_host)
+            if single:
+                # one clause a row; its items span every leaf, ascending in the
+                # view's doc space, so the single-term lane path applies
+                lane_cnt = np.zeros(b, np.int32)
+                for i, rq in enumerate(rqs):
+                    c = rq.clauses[0]
+                    for leaf in leaves:
+                        rec = leaf.term_record(c.term.field, c.term.text)
+                        if rec is not None:
+                            lane_cnt[i] += rec.doc_freq
+            filters = (
+                view_filters(view, leaves, *filter_tables) if filter_tables else None
+            )
+        with trace("search.device.conj_prune"):
+            work, _ = prune_conjunctions(work, n_required_terms, blk_ranges)
         dev = view.device
         if single:
-            # one clause a row; its items span every leaf, ascending in the
-            # view's doc space, so the single-term lane path applies
-            lane_cnt = np.zeros(b, np.int32)
-            for i, rq in enumerate(rqs):
-                c = rq.clauses[0]
-                for leaf in leaves:
-                    rec = leaf.term_record(c.term.field, c.term.text)
-                    if rec is not None:
-                        lane_cnt[i] += rec.doc_freq
             res = self._run_single_view(dev, work, lane_cnt, cache, n_required, min_should, k)
         elif prune:
             res = self._run_pruned_view(
                 dev, blk_ranges, view.blk_max_freq, work, cache, n_required, min_should, k, pure,
             )
         else:
-            filters = (
-                view_filters(view, leaves, *filter_tables) if filter_tables else None
-            )
             res = self._run_work(
                 dev, blk_ranges, work[:6], cache, n_required, min_should, k, pure, extras,
                 with_dismax, filters=filters, strategy=strategy,
             )
-        ma = execute_match_all(dev, boosts_t, k) if boosts_t is not None else None
+        ma = None
+        if boosts_t is not None:
+            with trace("search.device.launch"):
+                ma = execute_match_all(dev, boosts_t, k)
 
         def finish() -> list[TopDocs]:
             s, d, h = _host_result(res)
-            if ma is not None:
-                ms, mdoc, mh = (x.cpu().numpy() for x in ma)
-                s = np.where(match_all_rows[:, None], ms, s)
-                d = np.where(match_all_rows[:, None], mdoc, d)
-                h = np.where(match_all_rows, mh, h)
-            out = []
-            for i in range(b):
-                keep = s[i] > -np.inf
-                out.append(TopDocs(
-                    total_hits=int(h[i]), docs=view.map_docs(d[i][keep], leaves),
-                    scores=s[i][keep],
-                ))
-            return out
+            ma_host = None if ma is None else _host_result(ma)
+            with trace("search.device.merge"):
+                if ma_host is not None:
+                    ms, mdoc, mh = ma_host
+                    s = np.where(match_all_rows[:, None], ms, s)
+                    d = np.where(match_all_rows[:, None], mdoc, d)
+                    h = np.where(match_all_rows, mh, h)
+                out = []
+                for i in range(b):
+                    keep = s[i] > -np.inf
+                    out.append(TopDocs(
+                        total_hits=int(h[i]), docs=view.map_docs(d[i][keep], leaves),
+                        scores=s[i][keep],
+                    ))
+                return out
 
         return finish
 
@@ -1088,10 +1132,12 @@ def _subset_work(work, mask):
 
 def _host_result(res):
     """(scores, docs, hits) on the host: a pruned call's finish() result,
-    or an executor's tensors."""
+    or an executor's tensors, copied under the ``search.device.wait``
+    span (the copy waits for the work queued before it)."""
     if callable(res):
         return res()
-    return tuple(x.cpu().numpy() for x in res)
+    with trace("search.device.wait"):
+        return tuple(x.cpu().numpy() for x in res)
 
 
 def _blk_ranges(leaf) -> tuple[np.ndarray, np.ndarray]:

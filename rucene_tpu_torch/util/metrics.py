@@ -10,7 +10,7 @@ Counters in use:
   rows per route, ``search.phrase_plane_build`` / ``_denied`` (planes
   built, fetches refused), ``search.phrase_pruned_blocks``
   (search/phrase_path.py);
-- ``search.queries``, ``search.flat_lanes``, ``search.conj_pruned_blocks``;
+- ``search.queries``, ``search.conj_pruned_blocks``;
 - ``search.decode_dedup_items``: work items whose block decode was shared;
 - ``search.strategy.dense`` / ``search.strategy.candidate``: executor calls
   per branch;
@@ -31,6 +31,27 @@ Timers in use (``snapshot()["timers"]``: total_s, count, mean_ms, max_ms):
   ``search.phrases``, ``search.mixed``, ``search.synonyms`` and
   ``search.span_unordered`` (each path's finish, its wait for the
   device included);
+- the term path's stages (search/searcher.py), inside
+  ``search.device.dispatch``: ``search.device.tables`` (statistics,
+  clause tables, row classes, each leaf's block tables, work lists and
+  plane slots), ``search.device.conj_prune`` (prune_conjunctions),
+  ``search.device.combine_tables`` (build_combine_batch),
+  ``search.device.launch`` (each route's uploads and executor calls);
+  inside ``search.device``: ``search.device.wait`` (each copy of a result
+  to the host) and ``search.device.merge`` (the rows' hit lists);
+- the phrase path's stages (search/phrase_path.py):
+  ``search.phrases.select`` (statistics, then once a leaf the block
+  selection and routing), within it ``search.phrases.postings`` (the
+  selections the memo lacks), ``search.phrases.launch`` (uploads, the
+  candidate pipeline, the plane dispatch, the collect's plane retry),
+  within it ``search.phrases.plane_build`` (a position plane built on a
+  cache miss), ``search.phrases.scalar`` (each scalar-engine call, in
+  dispatch or collect), and inside ``search.phrases``
+  ``search.phrases.wait`` (the results' copies to the host) and
+  ``search.phrases.merge`` (the rows' hit lists);
+- set-up: ``reader.open`` (index/reader.open_directory_reader),
+  ``reader.device_build`` (a segment's device form) and
+  ``search.prewarm_planes`` (prewarm_phrase_planes);
 - ``writer.flush`` (index/writer.py).
 
 Port changes (the drift guard in tests/test_torch_host.py compares the

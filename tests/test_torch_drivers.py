@@ -5,7 +5,8 @@ examples) on the CPU, against the repo's drivers, which import rucene_tpu.
   bigram sampler, the mix, the default-docs rule;
 - build_bench_cache writes the bytes bench.cache_segment writes, and
   rebuilds a torn cache file;
-- drivers.bench prints a JSON line with bench.py's keys, and serve_mix's
+- drivers.bench prints a JSON line with bench.py's keys but its
+  bandwidth share, and serve_mix's
   TopDocs on an index carried across with packed_from_reference equal the
   reference's (tests/torch_hitcheck.py), decoded and packed; ``--nrt``
   ingests while it serves;
@@ -47,10 +48,11 @@ from rucene_tpu_torch.drivers import (
 )
 from rucene_tpu_torch.drivers import workload as wl
 from rucene_tpu_torch.examples import stable_lines
+from rucene_tpu_torch.native import available as native_available
 from tests.torch_hitcheck import assert_batches_strict
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "bandwidth_frac"}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}  # bench.py's, but its bandwidth share
 N_DOCS = 3000
 
 
@@ -148,12 +150,13 @@ def test_bench_main_prints_bench_keys(corpus, tmp_path, capsys):
     line = json.loads(out.strip().splitlines()[-1])
     assert set(line) == BENCH_KEYS and line == result
     assert f"{N_DOCS} docs" in line["metric"] and line["value"] > 0 and line["vs_baseline"] > 0
-    assert line["bandwidth_frac"] is None  # a device metric: not on the CPU
+    assert "postings traffic" not in err  # the lane counter and its figure are gone
     assert f"loading cached index bench-zipf-{N_DOCS}" in err
     routes = next(ln for ln in err.splitlines() if ln.startswith("# routes:"))
     assert "device=" in routes and "phrase=" in routes and "host=0" in routes
     timers = next(ln for ln in err.splitlines() if ln.startswith("# timers(timed-only):"))
-    for span in ("search.batch=", "search.device.dispatch=", "search.phrases="):
+    for span in ("search.batch=", "search.device.dispatch=", "search.phrases=",
+                 "search.device.tables=", "search.device.launch="):
         assert span in timers
     assert "batch latency p50" in err and "baseline(single-core numpy engine)" in err
 
@@ -219,10 +222,23 @@ def test_profile_bench_on_the_cpu(tmp_path, capsys):
     log_dir = str(tmp_path / "prof")
     out = profile_bench.main(["--device", "cpu", "--docs", "2000", "--batch", "32",
                               "--batches", "2", "--cache", "", "--log-dir", log_dir])
-    assert {n: c for n, (_ms, c) in out["spans"].items()} == {
-        "search.device.dispatch": 2, "search.phrases.dispatch": 2,
-        "search.device": 2, "search.phrases": 2,
+    # per batch: the outer spans, and the stages of one 2,000-doc leaf (the
+    # flat route's three table spans, on the dense branch; the phrase rows
+    # on the scalar engine, or without it on the candidate pipeline)
+    per_batch = {
+        "search.device.dispatch": 1, "search.phrases.dispatch": 1,
+        "search.device": 1, "search.phrases": 1,
+        "search.device.tables": 3, "search.device.conj_prune": 1,
+        "search.device.combine_tables": 1, "search.device.launch": 1,
+        "search.device.wait": 1, "search.device.merge": 1,
+        "search.phrases.select": 2, "search.phrases.merge": 1,
     }
+    if native_available:
+        per_batch["search.phrases.scalar"] = 1
+    else:
+        per_batch.update({"search.phrases.launch": 1, "search.phrases.wait": 1})
+    assert {n: c for n, (_ms, c) in out["spans"].items()} == {
+        n: 2 * c for n, c in per_batch.items()}
     again = profile_bench.main(["--analyze-only", "--log-dir", log_dir])
     assert again["spans"] == out["spans"] and again["ops"] == out["ops"]
     assert "-- host spans" in capsys.readouterr().out
