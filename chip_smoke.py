@@ -1333,7 +1333,8 @@ def shard_kernel_replay(index, searcher, dense_q, dev) -> dict:
             "max_abs_err": 0,
         }
     cb = flat_tables.build_combine_batch(
-        work, b, view.blk_first_host, view.blk_last_host, gdev.max_doc_padded, dev
+        work, b, view.blk_first_host, view.blk_last_host, gdev.max_doc_padded, dev,
+        q=q, buckets=gdev.buckets,
     )[0]
     target, sc, _valid = executor.decode_score_lanes(gdev, q)
     shape = (b, gdev.max_doc_padded)
@@ -3092,7 +3093,7 @@ def flat_combine_call(searcher, rows, leaf=None):
     q = flat_tables.make_flat_batch(work, n_req, min_sh, cache, gdev, dedupe=True)
     combine = flat_tables.build_combine_batch(
         work, b, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc, gdev.max_doc_padded,
-        leaf.torch_device,
+        leaf.torch_device, q=q, buckets=gdev.buckets,
     )
     target, sc, valid = executor.decode_score_lanes(gdev, q)
     return q, combine, target, sc, valid

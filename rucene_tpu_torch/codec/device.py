@@ -14,6 +14,10 @@ The norms plane (u8[F, MDp]), the packed position stream and the
 per-block position bases serve the phrase path (search/phrase_device.py,
 ops/phrase_plane.py) in both forms.
 
+Every form also holds its blocks' dense-combine buckets (block_buckets:
+each block's first bucket and span, on the host and on the device), read
+by search/flat_tables.build_combine_batch.
+
 A decoded segment may also hold dense tf planes (add_tf_planes): one u8
 row per hot term, ``tf_planes[slot, doc]`` = the term's freq there (0
 absent), scattered once from the decoded residency. The tf-plane executor
@@ -33,11 +37,13 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, replace
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from rucene_tpu_torch.codec.postings import PackedSegment
+from rucene_tpu_torch.ops.cuda_combine import C_BUCKET
 from rucene_tpu_torch.util import round_up
 
 DATA_PAD_WORDS = 2  # zero words past the last block: 2-word reads stay in bounds
@@ -55,6 +61,35 @@ TRANSIENT_BYTES_PER_ROW_DOC = 20
 PHRASE_PLANE_CAP = 16 << 30  # the phrase position-plane cache's ceiling
 TF_PLANE_CAP = 8 << 30  # the tf planes' ceiling (plane_policy)
 PLANE_CHUNK = 65536  # blocks per tf-plane scatter step
+
+
+class BlockBuckets(NamedTuple):
+    """Each block's doc buckets in the dense combine (ops/cuda_combine.
+    C_BUCKET docs a bucket), built once with a device form, so that
+    search/flat_tables.build_combine_batch builds a batch's entry tables
+    on the device: the span on the host (entry counts and the residue),
+    the first bucket and the span on the device (each entry's bucket)."""
+
+    span: np.ndarray  # i8[NB] buckets a block's doc range overlaps, capped at 127
+    first: torch.Tensor  # i32[NB] the block's first bucket
+    span_d: torch.Tensor  # i8[NB] ``span`` on the device
+
+
+def block_buckets(blk_first, blk_last, device) -> BlockBuckets:
+    """BlockBuckets from a block table's first and last docs (one inert
+    block where it has none, as one_block_min): a block overlaps buckets
+    ``first // C_BUCKET`` to ``max(last // C_BUCKET, first // C_BUCKET)``,
+    as ops/combine_tables.build_combine_tables counts them."""
+    first = np.asarray(blk_first, np.int64) // C_BUCKET
+    last = np.maximum(np.asarray(blk_last, np.int64) // C_BUCKET, first)
+    span = np.minimum(last - first + 1, 127).astype(np.int8)
+    first = one_block_min(first.astype(np.int32))
+    span = span if len(span) else np.zeros(1, np.int8)
+    return BlockBuckets(
+        span=span,
+        first=torch.from_numpy(first).to(device),
+        span_d=torch.from_numpy(span).to(device),
+    )
 
 
 @dataclass
@@ -76,6 +111,8 @@ class DeviceSegment:
     norm_dec: torch.Tensor | None = None  # u8[NB,128] norm bytes
     # --- dense tf planes (add_tf_planes); None when off ---
     tf_planes: torch.Tensor | None = None  # u8[P, MDp] hot-term freqs, 0 absent
+    # --- the blocks' dense-combine buckets (block_buckets) ---
+    buckets: BlockBuckets | None = None
 
     @property
     def max_doc_padded(self) -> int:
@@ -122,6 +159,7 @@ def build_device_segment(
         norms=put(norms, torch.uint8),
         positions=put(positions.view(np.int32)),
         blk_pos_base=put(one_block_min(packed.blk_pos_base)),
+        buckets=block_buckets(packed.blk_first_doc, packed.blk_last_doc, device),
     )
 
 

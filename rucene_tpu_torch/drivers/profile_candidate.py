@@ -154,7 +154,7 @@ def profile(searcher, queries, stages=STAGES, k: int = 100, out=print) -> dict:
                 f"chunk pass engaged: {results['chunk_pass']}")
     if "dense" in stages:
         combine = build_combine_batch(work, b, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc,
-                                      md, gdev)
+                                      md, gdev, q=q, buckets=dev.buckets)
         put("full_dense", timeit(lambda: execute_flat_impl(dev, q, k, combine=combine), gdev))
     if "candidate" in stages:
         put("full_candidate", timeit(lambda: execute_flat_impl(dev, q, k), gdev))

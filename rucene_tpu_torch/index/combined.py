@@ -59,6 +59,7 @@ from rucene_tpu_torch.codec.device import (
     DeviceSegment,
     add_decoded_planes,
     blk_fid_host,
+    block_buckets,
     decoded_policy,
     one_block_min,
 )
@@ -242,6 +243,7 @@ def build_combined_view(
         norms=put(norms, torch.uint8),
         positions=put(positions.view(np.int32)),
         blk_pos_base=put(one_block_min(cat(posb_p, np.int32))),
+        buckets=block_buckets(cat(first_p, np.int64), cat(last_p, np.int64), device),
     )
     blk_max_freq = cat(bmf_p, np.int32)
     decoded, fdt = decoded_policy(nb_total, int(blk_max_freq.max()) if nb_total else 0)

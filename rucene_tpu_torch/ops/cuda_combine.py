@@ -3,10 +3,10 @@
 Replaces rucene_tpu/ops/pallas_combine.py::combine_lanes_pallas: the dense
 executor branch's accumulation of decoded lanes into per-row [rows,
 max_doc] score and clause-count planes. Entries (work item x overlapped
-doc bucket, from ops/combine_tables.py) arrive sorted by bucket;
-``bucket_ptr[b]:bucket_ptr[b+1]`` are bucket b's entries, and each names
-the item whose lanes it adds, read in place from the decode's [W, 128]
-output.
+doc bucket, from search/flat_tables.build_combine_batch) arrive sorted
+by bucket; ``bucket_ptr[b]:bucket_ptr[b+1]`` are bucket b's entries, and
+each names the item whose lanes it adds, read in place from the decode's
+[W, 128] output.
 
 Bound: device-memory bytes (min_bytes), mostly the rows x max_doc x 8
 bytes of output. Each CTA zeroes a shared-memory tile of one bucket
@@ -17,14 +17,14 @@ shared-memory adds (four lanes a thread, 16-byte loads); the tile leaves
 in 16-byte stores; six such CTAs share an SM, so one's write-out overlaps
 another's adds. Summation rule: a (row, doc)'s score is +0.0 plus its
 lanes in entry order, which within a bucket is work-list item order
-(ops/combine_tables.py sorts entries by bucket stably), one rounding an
+(build_combine_batch sorts entries by bucket stably), one rounding an
 add; the twin follows the same rule (an index_add_ on the CPU), so the
 two are bit-equal and a call is a fixed function of its input. C_BUCKET
 is 512, half the TPU's 1024, and stays so: a smaller bucket would send
 more items to the executor's residue (SPARSE_SPAN counts buckets) and
-cost the host more entries. The bf16 three-limb split and one-hot matmuls
-of the TPU kernel have no counterpart: scores add in f32 and counts in
-int32.
+give the device more entries to sort. The bf16 three-limb split and
+one-hot matmuls of the TPU kernel have no counterpart: scores add in f32
+and counts in int32.
 
 A CPU tensor goes to the plain twin; a CUDA tensor launches the kernel or
 raises.

@@ -230,7 +230,7 @@ class FilterPathMixin:
         fq = make_flat_batch(work, n_required, min_should, cache, dev, dedupe=True)
         combine = build_combine_batch(
             work, 1, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc,
-            dev.max_doc_padded, dev.device,
+            dev.max_doc_padded, dev.device, q=fq, buckets=dev.buckets,
         )
         probe = torch.from_numpy(np.asarray(locs, np.int32)).to(leaf.torch_device)
         ok, sc = execute_probe(dev, fq, combine, probe, filters=filters)

@@ -2,8 +2,9 @@
 rucene_tpu/search/flat_tables.py).
 
 Host numpy assembly of the per-(query, clause, 128-doc block) work list and
-the dense-combine entry tables and the decode-dedup tables, plus the one
-place executor inputs move to the device (make_flat_batch), and the
+the decode-dedup tables, plus the one place executor inputs move to the
+device (make_flat_batch); the dense-combine entry tables, sorted on the
+batch's device from host counts (build_combine_batch); and the
 tf-plane executor's dense denominator planes (cval_plane_for), and the
 filter slot tables of range rows (build_range_filter_tables, without the
 reference's pow2 slot pad). Left out of the reference: the W floor of 1024 and the pow2 pads (of the work list
@@ -384,48 +385,106 @@ def residue_passes(residue, wi_row, wi_block, blk_first, blk_last):
     return residue[order], tuple(int(x) for x in ptr)
 
 
-def build_combine_batch(arrays, b: int, blk_first, blk_last, mdp: int, device):
+def _put_async(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An upload that leaves the host free: from pinned memory, not
+    waited for, on a card; a plain tensor on the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def build_combine_batch(arrays, b: int, blk_first, blk_last, mdp: int, device,
+                        q: FlatQueryBatch | None = None, buckets=None):
     """Dense-combine entry tables, one CombineBatch per 32-row chunk:
     entries (work item x overlapped C_BUCKET doc bucket) sorted by bucket,
     with per-bucket offsets, as the combine kernel walks them.
     Items overlapping more than SPARSE_SPAN buckets go to the residue
-    (global rows), split into passes (residue_passes)."""
-    from rucene_tpu_torch.ops.combine_tables import MAX_ROWS, build_combine_tables
+    (global rows), split into passes (residue_passes).
+
+    One pass for every chunk. The host reads each item's bucket span from
+    ``buckets`` (codec/device.block_buckets of ``blk_first`` /
+    ``blk_last``; a device form's own, else built here), counts each
+    chunk's entries and picks the residue. The device expands the dense
+    items into entries, keys each by (chunk, bucket) and sorts the keys
+    stably, so a bucket's entries keep work-list item order (the order of
+    ops/combine_tables' builder); each chunk's tables are views of the one
+    sorted array. ``q`` (make_flat_batch of ``arrays``) lends its device
+    copy of the work list; without it the list is uploaded. The work
+    list's rows ascend (build_flat_work). Every size comes from the host,
+    so nothing here waits for the device."""
+    from rucene_tpu_torch.codec.device import block_buckets
+    from rucene_tpu_torch.ops.combine_tables import MAX_ROWS, SPARSE_SPAN
     from rucene_tpu_torch.ops.cuda_combine import C_BUCKET
 
     if mdp % C_BUCKET:
         raise ValueError(f"doc axis {mdp} is not a multiple of {C_BUCKET}")
+    d = torch.device(device)
     wi_block, wi_row, _w, _f, wi_enc, wi_valid = arrays
-    w = len(wi_block)
-    blk_first = np.asarray(blk_first, np.int64)
-    blk_last = np.asarray(blk_last, np.int64)
-    out = []
-    for lo in range(0, b, MAX_ROWS):
-        in_chunk = (wi_row >= lo) & (wi_row < lo + MAX_ROWS)
-        tbl = build_combine_tables(
-            wi_block, wi_row - lo, wi_enc, wi_valid & in_chunk, w,
-            blk_first, blk_last, mdp, c_bucket=C_BUCKET, g_entries=1,
+    if buckets is None:
+        buckets = block_buckets(blk_first, blk_last, d)
+    if q is None:
+        d_block, d_row, d_enc, d_valid = (
+            _put_async(a, d) for a in (wi_block, wi_row, wi_enc, wi_valid)
         )
-        # one entry per step (g_entries=1); the builder's per-bucket dummies
-        # and pow2 step padding are inert (-1) and dropped here
-        live = tbl.e_item >= 0
-        e_bucket = tbl.g_bucket[live]
-        bucket_ptr = np.searchsorted(e_bucket, np.arange(tbl.n_buckets + 1))
-        residue, residue_ptr = residue_passes(
-            tbl.residue_items, wi_row, wi_block, blk_first, blk_last
+    else:
+        d_block, d_row, d_enc, d_valid = q.wi_block, q.wi_row, q.wi_enc, q.wi_valid
+    n_buckets = mdp // C_BUCKET
+    n_chunks = -(-b // MAX_ROWS)
+
+    # host: each chunk's items and entries, and the residue
+    span = np.where(wi_valid, buckets.span[wi_block], 0)
+    reps = np.where(span <= SPARSE_SPAN, span, 0)
+    residue = np.flatnonzero(span > SPARSE_SPAN)
+    item_ptr = np.searchsorted(wi_row, np.arange(n_chunks + 1) * MAX_ROWS)
+    entry_ptr = np.zeros(len(reps) + 1, np.int64)
+    np.cumsum(reps, dtype=np.int64, out=entry_ptr[1:])
+    entry_ptr = entry_ptr[item_ptr]
+    n_entries = int(entry_ptr[-1])
+    METRICS.incr("search.combine_entries", n_entries)
+    METRICS.incr("search.combine_residue_items", len(residue))
+
+    # device: one entry per (dense item, overlapped bucket), sorted by (chunk, bucket)
+    span_d = buckets.span_d.index_select(0, d_block).to(torch.int32)
+    reps_d = torch.where(d_valid & (span_d <= SPARSE_SPAN), span_d, 0)
+    item = torch.repeat_interleave(reps_d, output_size=n_entries)
+    first_entry = torch.cumsum(reps_d, 0, dtype=torch.int32) - reps_d
+    within = (torch.arange(n_entries, dtype=torch.int32, device=d)
+              - first_entry.index_select(0, item))
+    bucket = buckets.first.index_select(0, d_block.index_select(0, item)) + within
+    row = d_row.index_select(0, item)
+    key, order = torch.sort(torch.div(row, MAX_ROWS, rounding_mode="floor") * n_buckets + bucket,
+                            stable=True)
+    e_item = item.index_select(0, order)
+    e_row = torch.remainder(row.index_select(0, order), MAX_ROWS)
+    e_enc = d_enc.index_select(0, e_item)
+    ptr = torch.searchsorted(
+        key, torch.arange(n_chunks * n_buckets + 1, dtype=torch.int32, device=d), out_int32=True
+    ).unfold(0, n_buckets + 1, n_buckets)
+    bucket_ptr = ptr - ptr[:, :1]  # row c: chunk c's offsets, rebased to its first entry
+
+    # host: each chunk's residue in passes, uploaded once
+    res_ptr = np.searchsorted(residue, item_ptr)
+    passes = [
+        residue_passes(residue[res_ptr[c]:res_ptr[c + 1]], wi_row, wi_block, blk_first, blk_last)
+        for c in range(n_chunks)
+    ]
+    residue_d = (
+        _put_async(np.concatenate([items for items, _ in passes]), d) if len(residue)
+        else torch.zeros(0, dtype=torch.int64, device=d)
+    )
+    return tuple(
+        CombineBatch(
+            bucket_ptr=bucket_ptr[c],
+            e_item=e_item[entry_ptr[c]:entry_ptr[c + 1]],
+            e_row=e_row[entry_ptr[c]:entry_ptr[c + 1]],
+            e_enc=e_enc[entry_ptr[c]:entry_ptr[c + 1]],
+            residue=residue_d[res_ptr[c]:res_ptr[c + 1]],
+            row_lo=c * MAX_ROWS,
+            residue_ptr=ptrs,
         )
-        out.append(
-            CombineBatch(
-                bucket_ptr=_to(bucket_ptr, device, torch.int32),
-                e_item=_to(tbl.e_item[live], device),
-                e_row=_to(tbl.e_row[live], device),
-                e_enc=_to(tbl.e_enc[live], device),
-                residue=_to(residue, device, torch.int64),
-                row_lo=lo,
-                residue_ptr=residue_ptr,
-            )
-        )
-    return tuple(out)
+        for c, (_, ptrs) in enumerate(passes)
+    )
 
 
 def build_range_filter_tables(rqs, b: int):

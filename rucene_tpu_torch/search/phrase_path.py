@@ -804,7 +804,7 @@ class PhrasePathMixin:
                     fq = make_flat_batch(work, n_req, min_should, cache, dev, dedupe=True)
                     combine = build_combine_batch(
                         work, nb, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc,
-                        mdp, dev.device,
+                        mdp, dev.device, q=fq, buckets=dev.buckets,
                     )
                     res = execute_mixed_planes(
                         dev, fq, combine,

@@ -858,14 +858,16 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
             strategy = os.environ.get("RUCENE_STRATEGY", "auto")
         n_items = len(arrays[0])
         dense = dense_strategy(len(n_required), dev.max_doc_padded, n_items, strategy)
+        with trace("search.device.launch"):
+            q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
         combine = None
         if dense:
             with trace("search.device.combine_tables"):
                 combine = build_combine_batch(
-                    arrays, len(n_required), *blk_ranges, dev.max_doc_padded, dev.device
+                    arrays, len(n_required), *blk_ranges, dev.max_doc_padded, dev.device,
+                    q=q, buckets=dev.buckets,
                 )
         with trace("search.device.launch"):
-            q = make_flat_batch(arrays, n_required, min_should, cache, dev, dedupe=True)
             return execute_flat_impl(
                 dev, q, k, pure_disjunction=pure, combine=combine, extras=extras,
                 with_dismax=with_dismax, filters=filters,

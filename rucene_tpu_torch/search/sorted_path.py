@@ -195,7 +195,7 @@ class SortedPathMixin:
             fq = make_flat_batch(work, n_required, min_should, cache, dev, dedupe=True)
             combine = build_combine_batch(
                 work, 1, leaf.packed.blk_first_doc, leaf.packed.blk_last_doc,
-                dev.max_doc_padded, dev.device,
+                dev.max_doc_padded, dev.device, q=fq, buckets=dev.buckets,
             )
             filters = self._leaf_filters(leaf, *filter_tables) if filter_tables else None
             yield li, leaf, fq, combine, filters

@@ -12,6 +12,8 @@ Counters in use:
   (search/phrase_path.py);
 - ``search.queries``, ``search.conj_pruned_blocks``;
 - ``search.decode_dedup_items``: work items whose block decode was shared;
+- ``search.combine_entries`` / ``search.combine_residue_items``: the dense
+  combine's entries and residue items (flat_tables.build_combine_batch);
 - ``search.strategy.dense`` / ``search.strategy.candidate``: executor calls
   per branch;
 - ``kernel.<name>``: launches of a CUDA kernel, counted by its wrapper

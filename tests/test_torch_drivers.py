@@ -229,7 +229,8 @@ def test_profile_bench_on_the_cpu(tmp_path, capsys):
         "search.device.dispatch": 1, "search.phrases.dispatch": 1,
         "search.device": 1, "search.phrases": 1,
         "search.device.tables": 3, "search.device.conj_prune": 1,
-        "search.device.combine_tables": 1, "search.device.launch": 1,
+        "search.device.combine_tables": 1,
+        "search.device.launch": 2,  # the uploads; after the combine build, the executor call
         "search.device.wait": 1, "search.device.merge": 1,
         "search.phrases.select": 2, "search.phrases.merge": 1,
     }

@@ -210,7 +210,8 @@ def test_search_spans_equal_reference(corpus, batch):
     stages = {
         "search.device.tables": 3,  # row classes, the batch's tables, the leaf's
         "search.device.conj_prune": 1, "search.device.combine_tables": 1,
-        "search.device.launch": 1, "search.device.wait": 1, "search.device.merge": 1,
+        "search.device.launch": 2,  # the uploads; after the combine build, the executor call
+        "search.device.wait": 1, "search.device.merge": 1,
         "search.phrases.select": 2,  # statistics, the leaf's selection
         "search.phrases.merge": 1,
     }
