@@ -62,6 +62,7 @@ from rucene_tpu_torch.search.query_string import parse_query_string
 from rucene_tpu_torch.search.searcher import IndexSearcher, ScoreDoc, TopDocs
 from rucene_tpu_torch.search.similarity import BM25Similarity
 from rucene_tpu_torch.search.sort_field import Sort, SortField
+from rucene_tpu_torch.index.log_merge_policy import LogDocMergePolicy
 from rucene_tpu_torch.index.merge import TieredMergePolicy
 from rucene_tpu_torch.index.merge_scheduler import ConcurrentMergeScheduler, SerialMergeScheduler
 from rucene_tpu_torch.index.reader import IndexReader, open_directory_reader
@@ -76,6 +77,7 @@ __all__ = [
     "IndexReader",
     "IndexWriter",
     "IndexWriterConfig",
+    "LogDocMergePolicy",
     "RAMDirectory",
     "SearcherManager",
     "SerialMergeScheduler",

@@ -11,6 +11,11 @@ rewrite postings. `segments_N` is the two-phase commit point
 Container layout (all framed by store.directory header/footer + CRC32):
   payload := sections...; TOC(json: name -> [offset_in_payload, length, kind])
   section kinds: "npy" (numpy, no pickle), "json", "zjson" (zlib json)
+Port changes (held against rucene_tpu/codec/files.py by
+tests/test_torch_host.py):
+- LazyStored.__reduce__: a LazyStored pickles as the list of its docs (a
+  merge that runs in a worker process gets its inputs pickled; the mmap
+  under the view does not pickle).
 """
 
 from __future__ import annotations
@@ -202,6 +207,9 @@ class LazyStored:
 
     def __eq__(self, other):
         return list(self) == list(other)
+
+    def __reduce__(self):
+        return list, (list(self),)
 
 
 # ---------------- term table (offsets + bytes; front-coding TBD) -------------

@@ -26,6 +26,32 @@ tests/test_torch_host.py):
   no device work is needed: the statistics and the host engine's match
   read host arrays only). The searcher's reader serves its own view of the
   pooled snapshot, so no other reader's device forms are touched.
+- IndexWriterConfig: ``merge_on_refresh`` (off by default): get_reader
+  calls maybe_merge after its flush, as Lucene's IndexWriter.getReader
+  does; with a ConcurrentMergeScheduler the merge runs on its thread and
+  the merged segment joins at the next refresh.
+- IndexWriter.add_documents: the inversion into the buffer is the
+  ``writer.add_documents`` span.
+- IndexWriter._flush_buffer: ``writer.flush`` is a ``trace`` span (a
+  ``METRICS`` timer, as before, and a profiler event), over the same
+  interval.
+- IndexWriter.get_reader: the ``writer.get_reader`` span, and the merge on
+  refresh.
+- IndexWriter.maybe_merge: with ``merge_on_refresh`` the policy sees the
+  flushed, uncommitted segments too; an order-keeping policy
+  (``adjacent_only``, index/log_merge_policy.py) sees every segment in
+  index order, those already merging among them.
+- IndexWriter._register_merge: inputs are looked up among the flushed
+  segments too.
+- IndexWriter._merge_job: the ``writer.merge`` span (the merge and its
+  write) and the ``writer.merged_docs`` counter; the segment merge is the
+  scheduler's (``segment_merge``: on the merge thread, or in a worker
+  process with ``ConcurrentMergeScheduler(processes=True)``).
+- IndexWriter._commit_merge: inputs may be flushed, uncommitted segments;
+  the merged segment takes the first input's place, among the flushed
+  segments where any input was one (IndexWriter._drop_merged).
+- IndexWriter._drop_merged: one segment list with a merge's inputs
+  replaced by its output.
 """
 
 from __future__ import annotations
@@ -69,6 +95,7 @@ class IndexWriterConfig:
     merge_policy: TieredMergePolicy = dc_field(default_factory=TieredMergePolicy)
     merge_scheduler: object = dc_field(default_factory=SerialMergeScheduler)
     merge_on_commit: bool = True
+    merge_on_refresh: bool = False  # get_reader calls maybe_merge after its flush
     index_sort: object | None = None  # search.sort_field.Sort; applied at flush
 
 
@@ -177,10 +204,13 @@ class IndexWriter:
         with consecutive ids (reference index_writer.rs:436 — block-join
         consumers rely on contiguity), unlike a loop of add_document which
         may flush mid-list."""
+        from rucene_tpu_torch.util.metrics import trace
+
         with self._lock:
             self._ensure_open()
             self._change_gen += 1
-            self._buffer.add_documents_bulk(list(docs))
+            with trace("writer.add_documents"):
+                self._buffer.add_documents_bulk(list(docs))
             if self._buffer.num_docs >= self.config.max_buffered_docs:
                 self._flush_buffer()
 
@@ -319,28 +349,29 @@ class IndexWriter:
             self._apply_pending_deletes(flushed_name=None)
             self._apply_pending_dv_updates(flushed_name=None)
             return
-        METRICS.incr("writer.flushes")
-        t_flush = __import__("time").perf_counter()
-        seg_data = self._buffer.finish()
-        if self.config.index_sort is not None:
-            from rucene_tpu_torch.index.index_sorting import sort_segment_data
+        from rucene_tpu_torch.util.metrics import trace
 
-            seg_data = sort_segment_data(seg_data, self.config.index_sort)
-        name = _seg_name(self._infos.counter)
-        self._infos.counter += 1
-        packed = pack_segment(seg_data)
-        segfiles.write_segment(self.directory, name, packed)
-        snap = SegmentSnapshot(name, packed)
-        self._pool[name] = snap
-        info = SegmentCommitInfo(
-            name=name, max_doc=packed.max_doc, dims=segfiles.packed_dims(packed)
-        )
-        self._uncommitted.append(info)
-        self._buffer = SegmentBuffer(self.config.analyzer)
-        # pending deletes/updates may also target the freshly flushed segment
-        self._apply_pending_deletes(flushed_name=name)
-        self._apply_pending_dv_updates(flushed_name=name)
-        METRICS.observe("writer.flush", __import__("time").perf_counter() - t_flush)
+        METRICS.incr("writer.flushes")
+        with trace("writer.flush"):
+            seg_data = self._buffer.finish()
+            if self.config.index_sort is not None:
+                from rucene_tpu_torch.index.index_sorting import sort_segment_data
+
+                seg_data = sort_segment_data(seg_data, self.config.index_sort)
+            name = _seg_name(self._infos.counter)
+            self._infos.counter += 1
+            packed = pack_segment(seg_data)
+            segfiles.write_segment(self.directory, name, packed)
+            snap = SegmentSnapshot(name, packed)
+            self._pool[name] = snap
+            info = SegmentCommitInfo(
+                name=name, max_doc=packed.max_doc, dims=segfiles.packed_dims(packed)
+            )
+            self._uncommitted.append(info)
+            self._buffer = SegmentBuffer(self.config.analyzer)
+            # pending deletes/updates may also target the freshly flushed segment
+            self._apply_pending_deletes(flushed_name=name)
+            self._apply_pending_dv_updates(flushed_name=name)
 
     def _apply_pending_deletes(self, flushed_name: str | None) -> None:
         """BufferedUpdatesStream::apply_deletes_and_updates analog
@@ -519,13 +550,19 @@ class IndexWriter:
     # ---------- readers ----------
     def get_reader(self) -> IndexReader:
         """NRT reader: point-in-time over flushed segments + fresh deletes,
-        without fsync (reference index_writer.rs:287,1071)."""
-        with self._lock:
+        without fsync (reference index_writer.rs:287,1071). With
+        ``merge_on_refresh`` it then calls maybe_merge, as Lucene's getReader
+        does after its full flush."""
+        from rucene_tpu_torch.util.metrics import trace
+
+        with trace("writer.get_reader"), self._lock:
             self._ensure_open()
             self._flush_buffer()
             leaves = [self._snapshot(info) for info in self._all_infos()]
             reader = IndexReader(leaves)
             reader._writer_gen = self._change_gen
+            if self.config.merge_on_refresh:
+                self.maybe_merge()
             return reader
 
     # ---------- merge ----------
@@ -539,7 +576,16 @@ class IndexWriter:
         with self._lock:
             self._ensure_open()
             self._flush_buffer()
-            eligible = [i for i in self._infos.segments if i.name not in self._merging]
+            # with merge_on_refresh the flushed segments are what a refresh
+            # merges, so the policy sees them (Lucene's one segment list)
+            pool = self._all_infos() if self.config.merge_on_refresh else self._infos.segments
+            if getattr(self.config.merge_policy, "adjacent_only", False):
+                # an order-keeping policy merges runs of adjacent segments,
+                # so it sees every one in index order; _register_merge
+                # refuses a run that holds a merging segment
+                eligible = list(pool)
+            else:
+                eligible = [i for i in pool if i.name not in self._merging]
             sizes = {i.name: (i.max_doc - i.del_count) for i in eligible}
             deletes = {i.name: i.del_count for i in eligible}
             byte_sizes = None
@@ -568,7 +614,7 @@ class IndexWriter:
         wanted = set(names)
         if wanted & self._merging:
             return None  # an overlapping merge is in flight; policy retries later
-        infos = [i for i in self._infos.segments if i.name in wanted]
+        infos = [i for i in self._all_infos() if i.name in wanted]
         if not infos:
             return None
         if len(infos) == 1 and infos[0].del_count == 0:
@@ -587,11 +633,15 @@ class IndexWriter:
         scheduler propagates them to the caller, the concurrent one logs
         (reference index_writer.rs feeds merge failures into the tragedy
         path instead of dropping them)."""
+        from rucene_tpu_torch.util.metrics import trace
+
         try:
             METRICS.incr("writer.merges")
-            merged = merge_segments(reg.snaps)
-            if merged.max_doc > 0:
-                segfiles.write_segment(self.directory, reg.new_name, merged)
+            with trace("writer.merge"):
+                merged = self.config.merge_scheduler.segment_merge(reg.snaps)
+                if merged.max_doc > 0:
+                    segfiles.write_segment(self.directory, reg.new_name, merged)
+            METRICS.incr("writer.merged_docs", merged.max_doc)
             with self._lock:
                 self._commit_merge(reg, merged)
         except Exception as e:
@@ -609,7 +659,7 @@ class IndexWriter:
         merged doc space so no update is lost. Caller holds self._lock."""
         self._merging.difference_update(reg.names)
         self._merge_protected.discard(segfiles.segment_file(reg.new_name))
-        current = {i.name for i in self._infos.segments}
+        current = {i.name for i in self._all_infos()}
         if (
             self._closed
             or self._tragedy is not None
@@ -713,11 +763,23 @@ class IndexWriter:
                 self._dv_dirty.add(reg.new_name)
             self._pool[reg.new_name] = new_snap
 
+        # the merged segment holds uncommitted docs where any input was a
+        # flushed segment: it stays among those, so commit writes it
+        flushed = any(i.name in drop for i in self._uncommitted)
+        self._infos.segments = self._drop_merged(
+            self._infos.segments, drop, None if flushed else new_info)
+        self._uncommitted = self._drop_merged(
+            self._uncommitted, drop, new_info if flushed else None)
+        self._segments_changed = True
+
+    def _drop_merged(self, infos, drop: set, new_info) -> list[SegmentCommitInfo]:
+        """``infos`` without the merge's inputs ``drop``, with ``new_info``
+        (None: nothing) in the first input's place. Caller holds the lock."""
         kept: list[SegmentCommitInfo] = []
         inserted = False
-        for info in self._infos.segments:
+        for info in infos:
             if info.name in drop:
-                if not inserted and not all_dead:
+                if not inserted and new_info is not None:
                     kept.append(new_info)
                     inserted = True
                 self._pool.pop(info.name, None)
@@ -725,8 +787,7 @@ class IndexWriter:
                 self._dv_dirty.discard(info.name)
             else:
                 kept.append(info)
-        self._infos.segments = kept
-        self._segments_changed = True
+        return kept
 
     def _drain_merges(self) -> None:
         sched = self.config.merge_scheduler

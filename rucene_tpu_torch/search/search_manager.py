@@ -12,7 +12,11 @@ tests/test_torch_host.py):
 - SearcherManager.maybe_refresh: a reader's leaves are its own views of the
   writer's snapshots (index/reader.SegmentSnapshot.view), so "nothing
   changed" compares the snapshots the views were made from (``source``),
-  not the views.
+  not the views; the whole of it is the ``nrt.refresh`` span (the
+  writer's ``writer.get_reader`` and whatever the searcher factory builds,
+  device forms among it, lie within). Only leaves the old reader lacked get
+  a device form: the others are views of the snapshots it served, whose
+  forms, tf planes and phrase planes every view shares.
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ class SearcherManager:
 
     def maybe_refresh(self) -> bool:
         """Swap in a new point-in-time searcher if the index changed."""
-        with self._lock:
+        from rucene_tpu_torch.util.metrics import trace
+
+        with trace("nrt.refresh"), self._lock:
             new_reader = self._writer.get_reader()
             old = self._current.reader
             same = len(new_reader.leaves) == len(old.leaves) and all(

@@ -297,6 +297,7 @@ class IndexSearcher(PhrasePathMixin, SortedPathMixin, FilterPathMixin):
         self.timed_out = False
         t_start = time.perf_counter()
         METRICS.incr("search.queries", len(queries))
+        METRICS.incr("search.leaves", len(self.reader.leaves))
         plans = [self._plan_for(q) for q in queries]
         device_idx = [i for i, p in enumerate(plans) if device_row(p.rq)]
         taken = set(device_idx)

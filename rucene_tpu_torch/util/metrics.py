@@ -20,8 +20,10 @@ Counters in use:
   right where it launches (never for the CPU twin);
 - ``reader.device_builds``: device forms built for a segment on a device
   (index/reader.py; a delete or doc-values update builds none);
-- ``writer.flushes``, ``writer.merges``, ``writer.merge_errors``
-  (index/writer.py).
+- ``search.leaves``: leaves a batch's dispatch walks, the reader's leaf
+  count once a batch (search/searcher.py);
+- ``writer.flushes``, ``writer.merges``, ``writer.merge_errors``,
+  ``writer.merged_docs`` (docs written by merges) (index/writer.py).
 
 Timers in use (``snapshot()["timers"]``: total_s, count, mean_ms, max_ms):
 - ``search.batch``: a batch from search_batch_async to the end of its
@@ -54,7 +56,13 @@ Timers in use (``snapshot()["timers"]``: total_s, count, mean_ms, max_ms):
 - set-up: ``reader.open`` (index/reader.open_directory_reader),
   ``reader.device_build`` (a segment's device form) and
   ``search.prewarm_planes`` (prewarm_phrase_planes);
-- ``writer.flush`` (index/writer.py).
+- the write side (index/writer.py), as ``trace`` spans: ``writer.flush``,
+  ``writer.add_documents`` (a block's inversion into the buffer),
+  ``writer.merge`` (a merge and its write, on the merge scheduler's
+  thread) and ``writer.get_reader`` (an NRT reader: flush, and with
+  merge_on_refresh the merge's registration); ``nrt.refresh``
+  (search/search_manager.py: the whole of maybe_refresh, the new
+  searcher's device builds within it).
 
 Port changes (the drift guard in tests/test_torch_host.py compares the
 rest with the reference):
