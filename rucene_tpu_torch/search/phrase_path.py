@@ -28,18 +28,21 @@ Counters (rows unless named): ``search.phrase_device``,
 ``search.phrase_scalar_route``, ``search.phrase_host_fallback`` (rows the
 scalar engine or the host engine took after a device route declined
 them) and ``search.phrase_pruned_blocks`` (blocks the selection dropped);
-``search.mixed_host_spill`` (mixed rows a leaf sends back: their planes
-admission denied, or their term matches meet a plane's overflow column;
-each such row reruns whole on the host route).
+``search.phrase_select_device`` (phrases whose blocks a leaf selected on
+its device) and ``search.phrase_select_waits`` (those selections' waits,
+one a leaf call); ``search.mixed_host_spill`` (mixed rows a leaf sends
+back: their planes admission denied, or their term matches meet a plane's
+overflow column; each such row reruns whole on the host route).
 
 Stage spans of the pure phrase path (util/metrics.trace), inside the
 searcher's ``search.phrases.dispatch`` and ``search.phrases``:
 ``search.phrases.select`` (the statistics, then once a leaf the rows'
 block selection and routing, with ``search.phrases.postings`` around the
-selections the memo lacks), ``search.phrases.launch`` (the candidate
-tables' uploads and pipeline, the plane dispatch, and in collect the
-plane retry of overflow rows; ``search.phrases.plane_build`` around a
-plane built on a cache miss, whichever path asks), ``search.phrases.scalar``
+selections the memo lacks: their host tables, the one device pass and its
+wait), ``search.phrases.launch`` (the candidate tables' uploads and
+pipeline, the plane dispatch, and in collect the plane retry of overflow
+rows; ``search.phrases.plane_build`` around a plane built on a cache
+miss, whichever path asks), ``search.phrases.scalar``
 (each scalar-engine call), ``search.phrases.wait`` (the copies of the
 candidate and plane results) and ``search.phrases.merge`` (the rows' hit
 lists). ``search.prewarm_planes`` times prewarm_phrase_planes. The mixed
@@ -80,6 +83,7 @@ import numpy as np
 import torch
 
 from rucene_tpu_torch.codec.device import device_bytes, phrase_plane_budget
+from rucene_tpu_torch.ops.phrase_plane import work_lanes
 from rucene_tpu_torch.util.metrics import METRICS, trace
 
 # position-plane cache: (id(packed), device, field, term) -> (plane,
@@ -92,7 +96,8 @@ _PLANE_CACHE: dict = {}
 
 # candidate block-selection memo: (id(packed), field, terms, budget) ->
 # ((blocks, slots) | None, weak packed-ref). Popular phrases repeat across
-# batches; the selection host-decodes the rarest term's postings.
+# batches; a leaf's misses are selected together on its device
+# (select_phrase_blocks).
 _BLOCKSEL_CACHE: dict = {}
 _BLOCKSEL_CAP = 8192
 
@@ -158,6 +163,117 @@ def resident_plane_count(budget: int, mdp: int, words: int, frac: float) -> int:
     """Planes of ``words`` u32 words a doc (plus the overflow byte) that
     ``frac`` of a plane budget holds over doc axis ``mdp``; at least one."""
     return max(1, int(budget * frac) // max(mdp * (words * 4 + 1), 1))
+
+
+def _concat_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The ranges [starts[i], starts[i] + counts[i]) end to end (int64)."""
+    ends = np.cumsum(counts)
+    return np.arange(ends[-1], dtype=np.int64) + np.repeat(starts - (ends - counts), counts)
+
+
+def select_phrase_blocks(leaf, recs_list, budget_df: int) -> list:
+    """The block form of the reference's rarest-term leapfrog for a batch
+    of phrases on one leaf, ``recs_list`` each phrase's term records: a
+    phrase keeps its rarest term's blocks whole and, of every other term,
+    the blocks whose [blk_first_doc, blk_last_doc] holds one of the rarest
+    term's doc ids. Returns per phrase (blocks i32, slots i32) in slot
+    order, or None when its smallest df exceeds budget_df.
+
+    The doc ids stay on the leaf's device: the rare blocks' lanes
+    (work_lanes: a gather of the decoded planes, or K1 on a packed leaf)
+    make one non-decreasing key array (phrase << 32 | doc), a pad lane
+    taking its block's last doc through a running max, and one
+    searchsorted tests every other block's range against it. One upload
+    and one copy of the keep mask back a call, counted under
+    ``search.phrase_select_device`` (phrases) and
+    ``search.phrase_select_waits``."""
+    out: list = [None] * len(recs_list)
+    sel = []  # (phrase index, its records, its rarest slot)
+    for n, recs in enumerate(recs_list):
+        dfs = [r.doc_freq for r in recs]
+        rare = int(np.argmin(dfs))
+        if dfs[rare] <= budget_df:
+            sel.append((n, recs, rare))
+    if not sel:
+        return out
+    # a term of a phrase: the phrase, its slot, its record, whether rarest
+    t_miss, t_slot, t_rec, t_rare = zip(*[
+        (m, j, r, j == rare) for m, (_n, recs, rare) in enumerate(sel) for j, r in enumerate(recs)
+    ])
+    counts = np.asarray([r.block_count for r in t_rec], np.int64)
+    blk = _concat_ranges(np.asarray([r.block_start for r in t_rec], np.int64), counts)
+    miss = np.repeat(np.asarray(t_miss, np.int64), counts)
+    slot = np.repeat(np.asarray(t_slot, np.int32), counts)
+    keep = np.repeat(np.asarray(t_rare, bool), counts)  # the rarest's blocks stay whole
+    other = ~keep
+    tag = miss[other] << 32
+    keep[other] = _keep_blocks(
+        leaf.device, blk[keep], miss[keep],
+        tag | leaf.packed.blk_first_doc[blk[other]], tag | leaf.packed.blk_last_doc[blk[other]],
+    )
+    METRICS.incr("search.phrase_select_device", len(sel))
+    blk_k, slot_k = blk[keep].astype(np.int32), slot[keep]
+    bounds = np.searchsorted(miss[keep], np.arange(len(sel) + 1))
+    for m, (n, _recs, _rare) in enumerate(sel):
+        out[n] = (blk_k[bounds[m] : bounds[m + 1]], slot_k[bounds[m] : bounds[m + 1]])
+    return out
+
+
+# the block selection's stream a card, and the device forms it has
+# ordered after the stream that built them: id(blk_count) -> weak ref
+_SELECT_STREAMS: dict = {}
+_SELECT_FENCED: dict = {}
+
+
+def _keep_blocks(dev, rare_blk, rare_miss, lo, hi) -> np.ndarray:
+    """bool[len(lo)]: whether some lane of a rare block of phrase p lies in
+    [lo, hi], the other term's block range tagged with its phrase p in the
+    high word. On a card the work runs on a stream of its own: it reads
+    only the leaf's static device form and this call's upload, so the
+    wait does not queue behind earlier batches' kernels."""
+    up = torch.from_numpy(np.concatenate([rare_blk, rare_miss, lo, hi]))
+    r = len(rare_blk)
+    if dev.device.type == "cuda":
+        side = _select_stream(dev)
+        up = up.pin_memory()
+        with torch.cuda.stream(side):
+            got = torch.empty(len(lo), dtype=torch.bool, pin_memory=True)
+            got.copy_(_keep_mask(dev, up.to(dev.device, non_blocking=True), r), non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()
+    else:
+        got = _keep_mask(dev, up, r)
+    METRICS.incr("search.phrase_select_waits")
+    return got.numpy()
+
+
+def _keep_mask(dev, up: torch.Tensor, r: int) -> torch.Tensor:
+    """_keep_blocks' device work over ``up`` = [rare blocks | their
+    phrases | lo | hi] (int64), the rare blocks the first r."""
+    blk, miss = up[:r], up[r : 2 * r]
+    lo, hi = up[2 * r :].view(2, -1)
+    docs, _freqs, valid = work_lanes(dev, blk, dev.blk_count[blk])
+    key = torch.where(valid, (miss[:, None] << 32) | docs.long(), -1).reshape(-1)
+    # a sentinel past every range stands for "no doc at or after lo"
+    key = torch.cat([key.cummax(0).values, key.new_full((1,), torch.iinfo(torch.int64).max)])
+    return key[torch.searchsorted(key, lo)] <= hi
+
+
+def _select_stream(dev):
+    """The block selection's stream on dev's card. A device form seen the
+    first time is ordered after the current stream, which built it."""
+    side = _SELECT_STREAMS.get(dev.device)
+    if side is None:
+        side = _SELECT_STREAMS.setdefault(dev.device, torch.cuda.Stream(dev.device))
+    form = dev.blk_count
+    ref = _SELECT_FENCED.get(id(form))
+    if ref is None or ref() is not form:
+        side.wait_stream(torch.cuda.current_stream(dev.device))
+        for key in [key for key, r in list(_SELECT_FENCED.items()) if r() is None]:
+            del _SELECT_FENCED[key]
+        _SELECT_FENCED[id(form)] = weakref.ref(form)
+    return side
 
 
 class PhrasePathMixin:
@@ -231,9 +347,9 @@ class PhrasePathMixin:
     def _phrase_blocks_for_rows(leaf, wants, budget_df: int) -> list:
         """Candidate-driven block selection for phrase rows, ``wants`` a
         list of (field, terms, term records): each row's selection
-        memoized per (segment, field, terms, budget), the misses made
+        memoized per (segment, field, terms, budget), the misses selected
         together under the ``search.phrases.postings`` span (see
-        _phrase_blocks_uncached)."""
+        select_phrase_blocks)."""
         out: list = [None] * len(wants)
         misses: dict = {}  # cache key -> the rows that want it
         for n, (field, terms, _recs) in enumerate(wants):
@@ -246,50 +362,16 @@ class PhrasePathMixin:
                 misses.setdefault(ck, []).append(n)
         if misses:
             with trace("search.phrases.postings"):
-                for ck, rows in misses.items():
-                    field, terms, recs = wants[rows[0]]
-                    picked = PhrasePathMixin._phrase_blocks_uncached(
-                        leaf, field, terms, recs, budget_df
-                    )
+                picks = select_phrase_blocks(
+                    leaf, [wants[rows[0]][2] for rows in misses.values()], budget_df
+                )
+                for (ck, rows), picked in zip(misses.items(), picks):
                     _BLOCKSEL_CACHE[ck] = (picked, weakref.ref(leaf.packed))
                     for n in rows:
                         out[n] = picked
             while len(_BLOCKSEL_CACHE) > _BLOCKSEL_CAP:
                 _BLOCKSEL_CACHE.pop(next(iter(_BLOCKSEL_CACHE)))
         return out
-
-    @staticmethod
-    def _phrase_blocks_uncached(leaf, field, terms, recs, budget_df: int):
-        """The block form of the reference's rarest-term leapfrog:
-        host-decode the rarest term's doc ids, keep only the blocks of every
-        other term whose doc range contains one of them. Returns (blocks,
-        slots) arrays, or None when df_min exceeds budget_df."""
-        dfs = [r.doc_freq for r in recs]
-        rare = int(np.argmin(dfs))
-        if dfs[rare] > budget_df:
-            return None
-        field_docs = None
-        blk_parts, slot_parts = [], []
-        bf, bl = leaf.packed.blk_first_doc, leaf.packed.blk_last_doc
-        for j, rec in enumerate(recs):
-            all_b = np.arange(rec.block_start, rec.block_start + rec.block_count, dtype=np.int32)
-            if j == rare:
-                blk_parts.append(all_b)
-                slot_parts.append(np.full(len(all_b), j, np.int32))
-                continue
-            if field_docs is None:
-                p = leaf.read_postings(field, terms[rare])
-                field_docs = np.asarray(p[0], np.int64) if p is not None else np.zeros(0, np.int64)
-            # keep blocks whose [first, last] contains some rare-term doc
-            idx = np.searchsorted(field_docs, bf[all_b].astype(np.int64), side="left")
-            hit = (idx < len(field_docs)) & (
-                field_docs[np.minimum(idx, max(len(field_docs) - 1, 0))]
-                <= bl[all_b].astype(np.int64)
-            )
-            keep_b = all_b[hit] if len(field_docs) else all_b[:0]
-            blk_parts.append(keep_b)
-            slot_parts.append(np.full(len(keep_b), j, np.int32))
-        return np.concatenate(blk_parts), np.concatenate(slot_parts)
 
     def _search_phrases_device(self, queries, rqs, k: int, _defer: bool = False):
         """Batch of pure phrase rows. Per leaf: block selection first, then
