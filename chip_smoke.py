@@ -584,7 +584,7 @@ def serve_packed(packed, queries, dense_q, dev, card, split, n_phrase, full):
         n_planes = searcher.prewarm_phrase_planes()
         torch.cuda.synchronize()
         log(f"packed reader prewarmed {n_planes} phrase planes in {time.perf_counter() - t:.2f}s "
-            f"({phrase_path._plane_cache_bytes() / 2**20:.0f} MiB) through the decode kernel")
+            f"({phrase_path._PLANE_CACHE.nbytes / 2**20:.0f} MiB) through the decode kernel")
         before = METRICS.snapshot()["counters"]
         for i in range(0, len(queries), BATCH):  # warm pass
             searcher.search_batch(queries[i : i + BATCH], k=K)
@@ -1079,14 +1079,15 @@ def serve_query_surface(searchers, cpu_searcher, rows, mix_pairs, card):
                 run_s()  # warm: the rank tables
                 run_c()
                 fig["warm_sc_s"] = time.perf_counter() - t0
-                keys = set(phrase_path._PLANE_CACHE)
+                keys = {(id(seg), k) for (seg,), k, _v in phrase_path._PLANE_CACHE.items()}
                 run_n()  # warm: the span planes of terms first seen here
                 torch.cuda.synchronize()
-                built = {k: v for k, v in phrase_path._PLANE_CACHE.items() if k not in keys}
+                built = [v for (seg,), k, v in phrase_path._PLANE_CACHE.items()
+                         if (id(seg), k) not in keys]
                 fig["span_planes"] = len(built)
                 fig["span_plane_mib"] = sum(
                     p.numel() * p.element_size() + (0 if o is None else o.numel())
-                    for p, o, _ref in built.values()
+                    for p, o in built
                 ) / 2**20
                 s_res, s_sec, s_cnt, s_ent = stage(run_s)
                 c_res, c_sec, c_cnt, c_ent = stage(run_c)
@@ -2268,8 +2269,8 @@ def plane_bytes_off(leaves) -> int:
     live = {id(lf.packed) for lf in leaves}
     return sum(
         plane.numel() * plane.element_size() + (0 if ov is None else ov.numel())
-        for plane, ov, ref in list(phrase_path._PLANE_CACHE.values())
-        if plane.is_cuda and (ref() is None or id(ref()) not in live)
+        for (seg,), _key, (plane, ov) in phrase_path._PLANE_CACHE.items()
+        if plane.is_cuda and (seg is None or id(seg) not in live)
     )
 
 
@@ -3296,7 +3297,7 @@ def main() -> int:
     n_planes = searcher.prewarm_phrase_planes()
     torch.cuda.synchronize()
     prewarm_s = time.perf_counter() - t
-    plane_mib = phrase_path._plane_cache_bytes() / 2**20
+    plane_mib = phrase_path._PLANE_CACHE.nbytes / 2**20
     log(f"prewarmed {n_planes} phrase planes in {prewarm_s:.2f}s: {plane_mib:.0f} MiB "
         f"({searcher._plane_words(leaf, 'body')} words a doc; plane budget "
         f"{searcher._plane_budget_bytes(leaf) / 2**30:.1f} GiB)")

@@ -20,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from rucene_tpu_torch.index.derived import DerivedCache
 from rucene_tpu_torch.search.executor import (
     ENC_DEMOTE,
     ENC_NOT,
@@ -292,46 +293,36 @@ def dedupe_work(wi_block, wi_valid, wi_fid):
     )
 
 
-_CVAL_CACHE: dict = {}  # (id(norm_dec), cache bytes) -> (norm_dec ref, table)
+# of a device form's norm_dec / norms tensor, keyed by the stats' bytes
+_CVAL_CACHE = DerivedCache(8)
+_CVAL_PLANE_CACHE = DerivedCache(8)
 
 
 def cval_table_for(dev, cache: np.ndarray) -> torch.Tensor | None:
     """f32[NB,128] BM25 denominators cache[fid, norm_byte] per resident
     lane, built once per (device segment, stats); None for a packed
-    segment. Entries hold a strong ref to the keyed tensor so a recycled
-    id() never serves a stale table."""
+    segment."""
     if dev.norm_dec is None:
         return None
-    key = (id(dev.norm_dec), cache.tobytes())
-    ent = _CVAL_CACHE.get(key)
-    if ent is not None and ent[0] is dev.norm_dec:
-        return ent[1]
-    cache_flat = torch.from_numpy(cache.reshape(-1)).to(dev.device)
-    idx = dev.blk_fid.long()[:, None] * 256 + dev.norm_dec.long()
-    tbl = cache_flat[idx]
-    _CVAL_CACHE[key] = (dev.norm_dec, tbl)
-    while len(_CVAL_CACHE) > 8:
-        _CVAL_CACHE.pop(next(iter(_CVAL_CACHE)))
+    key = cache.tobytes()
+    tbl = _CVAL_CACHE.get((dev.norm_dec,), key)
+    if tbl is None:
+        cache_flat = torch.from_numpy(cache.reshape(-1)).to(dev.device)
+        idx = dev.blk_fid.long()[:, None] * 256 + dev.norm_dec.long()
+        tbl = _CVAL_CACHE.put((dev.norm_dec,), key, cache_flat[idx])
     return tbl
-
-
-_CVAL_PLANE_CACHE: dict = {}  # (id(norms), cache bytes) -> (norms ref, planes)
 
 
 def cval_plane_for(dev, cache: np.ndarray) -> torch.Tensor:
     """f32[F, MDp] BM25 denominators per doc for the tf-plane executor:
     ``cache[f, norms[f, d]]``, bit-identical to the lane path's per-lane
     lookup (same table, same norm byte). Built once per (norms plane,
-    stats); entries pin the keyed tensor (recycled-id() safety)."""
-    key = (id(dev.norms), cache.tobytes())
-    ent = _CVAL_PLANE_CACHE.get(key)
-    if ent is not None and ent[0] is dev.norms:
-        return ent[1]
-    tbl = torch.from_numpy(np.ascontiguousarray(cache, np.float32)).to(dev.device)
-    planes = torch.gather(tbl, 1, dev.norms.long())
-    _CVAL_PLANE_CACHE[key] = (dev.norms, planes)
-    while len(_CVAL_PLANE_CACHE) > 8:
-        _CVAL_PLANE_CACHE.pop(next(iter(_CVAL_PLANE_CACHE)))
+    stats)."""
+    key = cache.tobytes()
+    planes = _CVAL_PLANE_CACHE.get((dev.norms,), key)
+    if planes is None:
+        tbl = torch.from_numpy(np.ascontiguousarray(cache, np.float32)).to(dev.device)
+        planes = _CVAL_PLANE_CACHE.put((dev.norms,), key, torch.gather(tbl, 1, dev.norms.long()))
     return planes
 
 

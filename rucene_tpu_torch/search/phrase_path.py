@@ -48,16 +48,12 @@ candidate and plane results) and ``search.phrases.merge`` (the rows' hit
 lists). ``search.prewarm_planes`` times prewarm_phrase_planes. The mixed
 and span routes keep only the searcher's outer spans.
 
-Caches are module-wide as in the reference, so searchers over one segment
-share them. The plane caches and the memos hold a weak reference to the
-packed segment their key's id() names, and a hit requires it to be that
-segment: a segment merged away in NRT serving goes once no reader holds
-it, and its device planes at the next plane fetch (drop_dead_planes; the
-reference's entries pin their segment until the LRU evicts them, under a
-budget of up to 16 GB). The scalar engine cache holds its segment.
-Position planes, span group planes (the OR of a SpanOr child's member
-planes) and denominator planes are keyed by (segment, torch device) as
-well.
+Position, span-group and denominator planes, block selections, resident
+sets, plane widths and scalar engines are derived from a packed segment and
+held by module-wide instances of index/derived.DerivedCache, so searchers
+over one segment share them. DerivedCache holds each segment (and a scalar
+engine's live mask) by weak reference: a segment merged away in NRT
+serving goes once no reader holds it, and its entries at the next insert.
 
 Span-near rows whose children are plain terms or SpanOr groups of plain
 terms, all distinct, ride the position planes too
@@ -83,69 +79,30 @@ import numpy as np
 import torch
 
 from rucene_tpu_torch.codec.device import device_bytes, phrase_plane_budget
+from rucene_tpu_torch.index.derived import DerivedCache
 from rucene_tpu_torch.ops.phrase_plane import work_lanes
 from rucene_tpu_torch.util.metrics import METRICS, trace
 
-# position-plane cache: (id(packed), device, field, term) -> (plane,
-# overflow, weak packed-ref); denominator planes under (id(packed), device,
-# "denom", fid, cache row bytes) with overflow None. Byte-budgeted LRU.
-# The weak reference lets a segment that no reader or writer holds any
-# more (merged away in NRT serving) go, and drop_dead_planes frees its
-# planes at the next plane fetch.
-_PLANE_CACHE: dict = {}
-
-# candidate block-selection memo: (id(packed), field, terms, budget) ->
-# ((blocks, slots) | None, weak packed-ref). Popular phrases repeat across
-# batches; a leaf's misses are selected together on its device
-# (select_phrase_blocks).
-_BLOCKSEL_CACHE: dict = {}
-_BLOCKSEL_CAP = 8192
-
-# resident-set memo: (id(packed), field) -> (ordered terms tuple, term set,
-# weak packed-ref). Keyed without the budget, so admission is stable for a
-# segment's lifetime. See _plane_resident_terms.
-_RESIDENT_CACHE: dict = {}
-
-# plane-width memo: (id(packed), field) -> (words, weak packed-ref).
-_PLANE_WORDS_CACHE: dict = {}
-
-# scalar C++ engine cache: id(packed) -> (engine, live-ref, packed-ref)
-_SCALAR_ENGINE_CACHE: dict = {}
+# (device, field, term or ("or", members) | "denom", fid, stats) ->
+# (plane, overflow or None), within the plane budget (_plane_budget_bytes)
+_PLANE_CACHE = DerivedCache()
+_BLOCKSEL_CACHE = DerivedCache(8192)  # (field, terms, budget) -> (blocks, slots) | None
+# field -> (ordered terms, term set), without the budget: admission is
+# stable for a segment's lifetime
+_RESIDENT_CACHE = DerivedCache(64)
+_PLANE_WORDS_CACHE = DerivedCache(256)  # field -> u32 plane words a doc
+_SCALAR_ENGINE_CACHE = DerivedCache(64)  # of (packed segment, live mask)
+_MISS = object()  # a block selection may be None
 
 
-def drop_dead_planes() -> int:
-    """Drop the plane-cache entries of segments that have been freed;
-    returns the bytes released."""
-    freed = 0
-    for key, (plane, overflow, ref) in list(_PLANE_CACHE.items()):
-        if ref() is None and _PLANE_CACHE.pop(key, None) is not None:
-            freed += plane.numel() * plane.element_size()
-            freed += 0 if overflow is None else overflow.numel()
-    return freed
+def _plane_at(leaf, key: tuple) -> tuple:
+    """(anchors, key) of ``leaf``'s planes under ``key`` on its device."""
+    return (leaf.packed,), (str(leaf.torch_device),) + key
 
 
-def _plane_hit(key, packed):
-    """The entry under ``key`` if it was built for ``packed``, moved to the
-    LRU's end; None otherwise (an entry of a freed segment whose id() came
-    back with another segment goes)."""
-    got = _PLANE_CACHE.pop(key, None)
-    if got is None or got[2]() is not packed:
-        return None
-    _PLANE_CACHE[key] = got
-    return got
-
-
-def _plane_cache_bytes() -> int:
-    total = 0
-    for plane, overflow, _ref in _PLANE_CACHE.values():
-        total += plane.numel() * plane.element_size()
-        if overflow is not None:
-            total += overflow.numel()
-    return total
-
-
-def _seg_key(leaf) -> tuple:
-    return (id(leaf.packed), str(leaf.torch_device))
+def _plane_put(leaf, key: tuple, plane, overflow, budget: int | None):
+    nbytes = plane.nbytes + (0 if overflow is None else overflow.nbytes)
+    return _PLANE_CACHE.put(*_plane_at(leaf, key), (plane, overflow), nbytes, budget)
 
 
 def _idf_weight(sim, stats, doc_freqs, field, terms, boost) -> np.float32:
@@ -219,10 +176,10 @@ def select_phrase_blocks(leaf, recs_list, budget_df: int) -> list:
     return out
 
 
-# the block selection's stream a card, and the device forms it has
-# ordered after the stream that built them: id(blk_count) -> weak ref
+# the block selection's stream a card, and the device forms (by their
+# blk_count) it has ordered after the stream that built them
 _SELECT_STREAMS: dict = {}
-_SELECT_FENCED: dict = {}
+_SELECT_FENCED = DerivedCache()
 
 
 def _keep_blocks(dev, rare_blk, rare_miss, lo, hi) -> np.ndarray:
@@ -266,13 +223,9 @@ def _select_stream(dev):
     side = _SELECT_STREAMS.get(dev.device)
     if side is None:
         side = _SELECT_STREAMS.setdefault(dev.device, torch.cuda.Stream(dev.device))
-    form = dev.blk_count
-    ref = _SELECT_FENCED.get(id(form))
-    if ref is None or ref() is not form:
+    if not _SELECT_FENCED.get((dev.blk_count,)):
         side.wait_stream(torch.cuda.current_stream(dev.device))
-        for key in [key for key, r in list(_SELECT_FENCED.items()) if r() is None]:
-            del _SELECT_FENCED[key]
-        _SELECT_FENCED[id(form)] = weakref.ref(form)
+        _SELECT_FENCED.put((dev.blk_count,), (), True)
     return side
 
 
@@ -352,25 +305,23 @@ class PhrasePathMixin:
         select_phrase_blocks)."""
         out: list = [None] * len(wants)
         misses: dict = {}  # cache key -> the rows that want it
+        seg = (leaf.packed,)
         for n, (field, terms, _recs) in enumerate(wants):
-            ck = (id(leaf.packed), field, tuple(terms), budget_df)
-            hit = _BLOCKSEL_CACHE.pop(ck, None)
-            if hit is not None and hit[1]() is leaf.packed:
-                _BLOCKSEL_CACHE[ck] = hit  # refresh LRU position
-                out[n] = hit[0]
-            else:
+            ck = (field, tuple(terms), budget_df)
+            hit = _BLOCKSEL_CACHE.get(seg, ck, _MISS)
+            if hit is _MISS:
                 misses.setdefault(ck, []).append(n)
+            else:
+                out[n] = hit
         if misses:
             with trace("search.phrases.postings"):
                 picks = select_phrase_blocks(
                     leaf, [wants[rows[0]][2] for rows in misses.values()], budget_df
                 )
                 for (ck, rows), picked in zip(misses.items(), picks):
-                    _BLOCKSEL_CACHE[ck] = (picked, weakref.ref(leaf.packed))
+                    _BLOCKSEL_CACHE.put(seg, ck, picked)
                     for n in rows:
                         out[n] = picked
-            while len(_BLOCKSEL_CACHE) > _BLOCKSEL_CAP:
-                _BLOCKSEL_CACHE.pop(next(iter(_BLOCKSEL_CACHE)))
         return out
 
     def _search_phrases_device(self, queries, rqs, k: int, _defer: bool = False):
@@ -635,10 +586,9 @@ class PhrasePathMixin:
         bound comes from the norm bytes: norm_table[b] = 1/f^2 >= len
         whenever boost <= 1. A doc a boost pushed past it only sets the
         overflow column."""
-        key = (id(leaf.packed), field)
-        got = _PLANE_WORDS_CACHE.get(key)
-        if got is not None and got[1]() is leaf.packed:
-            return got[0]
+        got = _PLANE_WORDS_CACHE.get((leaf.packed,), field)
+        if got is not None:
+            return got
         from rucene_tpu_torch.util.small_float import norm_table
 
         words = 4
@@ -646,20 +596,16 @@ class PhrasePathMixin:
         if nb is not None and len(nb):
             if float(norm_table()[np.asarray(nb)].max()) <= 64.0:
                 words = 2
-        _PLANE_WORDS_CACHE[key] = (words, weakref.ref(leaf.packed))
-        if len(_PLANE_WORDS_CACHE) > 256:
-            _PLANE_WORDS_CACHE.pop(next(iter(_PLANE_WORDS_CACHE)))
-        return words
+        return _PLANE_WORDS_CACHE.put((leaf.packed,), field, words)
 
     def _plane_resident_terms(self, leaf, field: str):
         """(ordered tuple, set) of the block-count-descending prefix of the
         field's terms that fits PLANE_RESIDENT_FRAC of the plane budget:
         the serving-time admission set on big leaves (planes are built on
         the query path only for terms that will stay cached)."""
-        key = (id(leaf.packed), field)
-        got = _RESIDENT_CACHE.get(key)
-        if got is not None and got[2]() is leaf.packed:
-            return got[0], got[1]
+        got = _RESIDENT_CACHE.get((leaf.packed,), field)
+        if got is not None:
+            return got
         pf = leaf.packed.fields.get(field)
         if pf is None:
             out = ((), frozenset())
@@ -673,10 +619,7 @@ class PhrasePathMixin:
             keep = order[bc[order] >= 1]
             terms = tuple(pf.terms[int(o)] for o in keep)
             out = (terms, frozenset(terms))
-        _RESIDENT_CACHE[key] = (out[0], out[1], weakref.ref(leaf.packed))
-        if len(_RESIDENT_CACHE) > 64:
-            _RESIDENT_CACHE.pop(next(iter(_RESIDENT_CACHE)))
-        return out
+        return _RESIDENT_CACHE.put((leaf.packed,), field, out)
 
     def _planes_admitted(self, leaf, field: str, terms) -> bool:
         """True when every term is already cached or in the resident set —
@@ -685,8 +628,7 @@ class PhrasePathMixin:
             return True  # small leaf: on-demand builds are cheap
         res = None
         for t in terms:
-            got = _PLANE_CACHE.get(_seg_key(leaf) + (field, t))
-            if got is not None and got[2]() is leaf.packed:
+            if _PLANE_CACHE.peek(*_plane_at(leaf, (field, t))) is not None:
                 continue
             if res is None:
                 res = self._plane_resident_terms(leaf, field)[1]
@@ -700,21 +642,18 @@ class PhrasePathMixin:
         stacks on a full cache). None for an absent term."""
         from rucene_tpu_torch.ops.phrase_plane import FMAX, build_position_plane
 
-        key = _seg_key(leaf) + (field, term)
-        got = _plane_hit(key, leaf.packed)
+        got = _PLANE_CACHE.get(*_plane_at(leaf, (field, term)))
         if got is not None:
-            return got[0], got[1]
+            return got
         rec = leaf.term_record(field, term)
         if rec is None:
             return None
         with trace("search.phrases.plane_build"):
             blocks = np.arange(rec.block_start, rec.block_start + rec.block_count, dtype=np.int32)
-            drop_dead_planes()
             budget = self._plane_budget_bytes(leaf)
             p_words = self._plane_words(leaf, field)
             new_bytes = leaf.device.max_doc_padded * (p_words * 4 + 1)  # plane + overflow
-            while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget - new_bytes:
-                _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
+            _PLANE_CACHE.make_room(budget, new_bytes)
             fwin = (min(FMAX, max(int(leaf.packed.blk_max_freq[blocks].max()), 1))
                     if len(blocks) else 1)
             plane, overflow = build_position_plane(
@@ -722,10 +661,7 @@ class PhrasePathMixin:
                 rec.pos_word_start, words=p_words, fwin=fwin,
             )
             METRICS.incr("search.phrase_plane_build")
-            _PLANE_CACHE[key] = (plane, overflow, weakref.ref(leaf.packed))
-            while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget:
-                _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
-        return plane, overflow
+            return _plane_put(leaf, (field, term), plane, overflow, budget)
 
     def _phrase_planes_for_many(self, leaf, wants, admit: bool = False):
         """(plane, overflow) for many (field, term) pairs: cache hits at
@@ -738,10 +674,9 @@ class PhrasePathMixin:
             fkey = (field, term)
             if fkey in out:
                 continue
-            key = _seg_key(leaf) + (field, term)
-            got = _plane_hit(key, leaf.packed)
+            got = _PLANE_CACHE.get(*_plane_at(leaf, fkey))
             if got is not None:
-                out[fkey] = (got[0], got[1])
+                out[fkey] = got
                 continue
             if leaf.term_record(field, term) is None:
                 out[fkey] = None
@@ -792,14 +727,12 @@ class PhrasePathMixin:
     def _denom_plane_for(self, leaf, fid: int, cache_row: np.ndarray):
         """Device-cached f32[mdp] BM25 denominator plane for one field,
         cache_row[norm_byte[doc]], built once per (leaf, field, stats)."""
-        key = _seg_key(leaf) + ("denom", fid, cache_row.tobytes())
-        got = _plane_hit(key, leaf.packed)
+        key = ("denom", fid, cache_row.tobytes())
+        got = _PLANE_CACHE.get(*_plane_at(leaf, key))
         if got is not None:
             return got[0]
         row = torch.from_numpy(np.ascontiguousarray(cache_row, np.float32)).to(leaf.torch_device)
-        denom = row[leaf.device.norms[fid].long()]
-        _PLANE_CACHE[key] = (denom, None, weakref.ref(leaf.packed))
-        return denom
+        return _plane_put(leaf, key, row[leaf.device.norms[fid].long()], None, None)[0]
 
     def _search_mixed_device(self, queries, rqs, k: int, _defer: bool = False):
         """Mixed rows (term clauses and ranges plus one required exact
@@ -1063,10 +996,10 @@ class PhrasePathMixin:
         run once per distinct group. None when no member is present."""
         if len(members) == 1:
             return self._phrase_plane_for(leaf, field, members[0])
-        key = _seg_key(leaf) + (field, ("or",) + tuple(sorted(members)))
-        got = _plane_hit(key, leaf.packed)
+        key = (field, ("or",) + tuple(sorted(members)))
+        got = _PLANE_CACHE.get(*_plane_at(leaf, key))
         if got is not None:
-            return got[0], got[1]
+            return got
         gp = go = None
         for t in members:
             sub = self._phrase_plane_for(leaf, field, t)
@@ -1076,11 +1009,7 @@ class PhrasePathMixin:
             go = sub[1] if go is None else (go | sub[1])
         if gp is None:
             return None
-        _PLANE_CACHE[key] = (gp, go, weakref.ref(leaf.packed))
-        budget = self._plane_budget_bytes(leaf)
-        while len(_PLANE_CACHE) > 1 and _plane_cache_bytes() > budget:
-            _PLANE_CACHE.pop(next(iter(_PLANE_CACHE)))
-        return gp, go
+        return _plane_put(leaf, key, gp, go, self._plane_budget_bytes(leaf))
 
     def _search_phrase_planes(self, leaf, rows, rqs, sim, stats, doc_freqs, k):
         """Exact rows via position planes, collected now: (done: gi ->
@@ -1213,24 +1142,20 @@ class PhrasePathMixin:
     def _scalar_engine_for(self, leaf, sim, stats, doc_freqs):
         from rucene_tpu_torch.search.scalar_engine import ScalarSearcher
 
-        key = id(leaf.packed)
-        cached = _SCALAR_ENGINE_CACHE.get(key)
-        if cached is None or cached[1] is not leaf.live or cached[2] is not leaf.packed:
-            cached = (ScalarSearcher(leaf, sim, stats, doc_freqs), leaf.live, leaf.packed)
-            _SCALAR_ENGINE_CACHE[key] = cached
-            while len(_SCALAR_ENGINE_CACHE) > 64:
-                _SCALAR_ENGINE_CACHE.pop(next(iter(_SCALAR_ENGINE_CACHE)))
-        else:
-            eng = cached[0]
-            if eng.sim is not sim or eng.stats != stats:
-                # its BM25 norm tables were made from the old statistics: an
-                # NRT refresh that adds docs changes them (the reference
-                # keeps serving the stale tables)
-                eng._cache_rows, eng._cache_idx = [], {}
-            eng.sim = sim
-            eng.stats = stats
-            eng.doc_freqs = doc_freqs
-        return cached[0]
+        # the engine reads its leaf only inside a call: it holds a proxy,
+        # bound anew at each fetch, so a cached engine pins no segment
+        proxy = weakref.proxy(leaf)
+        anchors = (leaf.packed, leaf.live)
+        eng = _SCALAR_ENGINE_CACHE.get(anchors)
+        if eng is None:
+            return _SCALAR_ENGINE_CACHE.put(anchors, (), ScalarSearcher(proxy, sim, stats, doc_freqs))
+        if eng.sim is not sim or eng.stats != stats:
+            # its BM25 norm tables were made from the old statistics: an
+            # NRT refresh that adds docs changes them (the reference keeps
+            # serving the stale tables)
+            eng._cache_rows, eng._cache_idx = [], {}
+        eng.leaf, eng.sim, eng.stats, eng.doc_freqs = proxy, sim, stats, doc_freqs
+        return eng
 
     def _scalar_fallback(self, leaf, rq, query, sim, stats, doc_freqs, k):
         """One query on one leaf through the scalar C++ engine, or the numpy

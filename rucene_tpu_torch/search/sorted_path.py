@@ -11,30 +11,26 @@ evaluate their row through executor._dense_match: the combine kernel on
 the dense branch, the scoring decode on packed leaves.
 
 Rank tables are cached module-wide, so a new searcher after an NRT
-refresh that changed nothing reuses them. Unlike the reference's cache,
-whose entries hold their leaves' segments (a refresh makes a new leaf
-tuple, so merged-away segments stay pinned until 32 newer entries push
-them out), an entry holds a weak reference to each leaf's packed segment
-and a hit requires every one to be the leaf's segment; entries whose
-segments are gone are dropped. The key names each leaf's doc-values
+refresh that changed nothing reuses them. The cache is an
+index/derived.DerivedCache anchored on every leaf's packed segment, so,
+unlike the reference's, whose entries hold their leaves' segments, it
+keeps no merged-away segment alive. The key names each leaf's doc-values
 overlays of the sorted fields by content, so a doc-values update gets new
 ranks and a delete keeps them.
 """
 
 from __future__ import annotations
 
-import weakref
-
 import numpy as np
 import torch
 
+from rucene_tpu_torch.index.derived import DerivedCache
 from rucene_tpu_torch.search import host_engine
 from rucene_tpu_torch.search.query import Query
 from rucene_tpu_torch.util.metrics import METRICS
 
-# (tail, per-leaf state) -> (value, weak refs to the leaves' packed segments)
-_RANK_CACHE: dict = {}
-_RANK_CACHE_CAP = 32
+# anchored on the leaves' packed segments: (tail, per-leaf state) -> tables
+_RANK_CACHE = DerivedCache(32)
 
 
 def _overlay_state(leaf, fields) -> tuple:
@@ -45,38 +41,18 @@ def _overlay_state(leaf, fields) -> tuple:
     )
 
 
-def drop_dead_ranks() -> int:
-    """Drop the rank-cache entries of which some segment has been freed;
-    returns how many went."""
-    dead = [key for key, (_v, refs) in _RANK_CACHE.items() if any(r() is None for r in refs)]
-    for key in dead:
-        _RANK_CACHE.pop(key, None)
-    return len(dead)
-
-
 class SortedPathMixin:
     # --- sorted search (reference sort_field machinery) ---
-    def _rank_cache_key(self, tail: tuple, fields) -> tuple:
-        """Rank tables depend on each leaf's packed data and the doc-values
-        overlays of ``fields``, not on the searcher, so a new searcher
-        over the same leaves finds them."""
-        return tail + tuple(
-            (id(lf.packed), lf.max_doc, _overlay_state(lf, fields)) for lf in self.reader.leaves
-        )
-
-    def _rank_cache_get(self, key, compute):
+    def _rank_cached(self, tail: tuple, fields, compute):
+        """Rank tables from ``compute``, cached by what they depend on: each
+        leaf's packed data (the anchors) and doc-values overlays of
+        ``fields`` (the key, after ``tail``), not the searcher, so a new
+        searcher over the same leaves finds them."""
         leaves = self.reader.leaves
-        got = _RANK_CACHE.get(key)
-        if got is not None:
-            if all(r() is lf.packed for r, lf in zip(got[1], leaves)):
-                return got[0]
-            del _RANK_CACHE[key]  # a freed segment's id() came back
-        drop_dead_ranks()
-        value = compute()
-        _RANK_CACHE[key] = (value, [weakref.ref(lf.packed) for lf in leaves])
-        while len(_RANK_CACHE) > _RANK_CACHE_CAP:
-            _RANK_CACHE.pop(next(iter(_RANK_CACHE)))
-        return value
+        anchors = tuple(lf.packed for lf in leaves)
+        key = tail + tuple((lf.max_doc, _overlay_state(lf, fields)) for lf in leaves)
+        got = _RANK_CACHE.get(anchors, key)
+        return got if got is not None else _RANK_CACHE.put(anchors, key, compute())
 
     def _dv_rank_tables(self, field: str):
         """Global order-preserving rank tables for a numeric DV field:
@@ -97,7 +73,7 @@ class SortedPathMixin:
             ranks = [np.searchsorted(uniq, c).astype(np.int32) for c in cols]
             return uniq, ranks
 
-        return self._rank_cache_get(self._rank_cache_key(("1f", field), (field,)), compute)
+        return self._rank_cached(("1f", field), (field,), compute)
 
     def _composite_rank_tables(self, sort):
         """Lexicographic rank tables over 1..N numeric sort fields with the
@@ -132,10 +108,8 @@ class SortedPathMixin:
             vals_per_field.reverse()
             return len(uniq_c), crank, vals_per_field
 
-        key = self._rank_cache_key(
-            ("comp", tuple((sf.field, sf.reverse) for sf in fields)), [sf.field for sf in fields]
-        )
-        return self._rank_cache_get(key, compute)
+        tail = ("comp", tuple((sf.field, sf.reverse) for sf in fields))
+        return self._rank_cached(tail, [sf.field for sf in fields], compute)
 
     def _sorted_device_eligible(self, query: Query, sort) -> bool:
         from rucene_tpu_torch.search.sort_field import SortFieldType
@@ -367,9 +341,7 @@ class SortedPathMixin:
             ranks = [np.searchsorted(uniq, c).astype(np.int32) for c in cols]
             return uniq, ranks
 
-        uniq, ranks = self._rank_cache_get(
-            self._rank_cache_key(("collapse", collapse_field), (collapse_field,)), compute
-        )
+        uniq, ranks = self._rank_cached(("collapse", collapse_field), (collapse_field,), compute)
         n_keys = max(len(uniq), 1)
         rq = query.rewrite()
         pending = []

@@ -506,7 +506,7 @@ def test_planes_of_merged_segments_are_released(corpus, tmp_path, monkeypatch):
     s1 = _searcher(w.get_reader(), attrs)
     before = s1.search_batch(rows, k=K_ALL)
     old = {id(lf.packed) for lf in s1.reader.leaves}
-    held = [key for key, (_p, _o, ref) in phrase_path._PLANE_CACHE.items() if id(ref()) in old]
+    held = [key for (seg,), key, _v in phrase_path._PLANE_CACHE.items() if id(seg) in old]
     assert held
     w.force_merge(1)
     s2 = _searcher(w.get_reader(), attrs)
@@ -514,8 +514,45 @@ def test_planes_of_merged_segments_are_released(corpus, tmp_path, monkeypatch):
     gc.collect()
     after = s2.search_batch(rows, k=K_ALL)  # builds the merged segment's planes
     # no entry of a freed segment is left, so none of the merged-away ones
-    assert all(ref() is not None for _p, _o, ref in phrase_path._PLANE_CACHE.values())
+    assert all(seg is not None for (seg,), _k, _v in phrase_path._PLANE_CACHE.items())
     merged = id(s2.reader.leaves[0].packed)
-    assert any(id(ref()) == merged for _p, _o, ref in phrase_path._PLANE_CACHE.values())
+    assert any(id(seg) == merged for (seg,), _k, _v in phrase_path._PLANE_CACHE.items())
+    assert [td.total_hits for td in after] == [td.total_hits for td in before]
+    w.close()
+
+
+def test_scalar_engines_of_merged_segments_are_released(corpus, tmp_path):
+    """Scalar phrase engines built for small segments that a merge then
+    takes away keep none of them alive once no reader holds them, and
+    leave the cache at the next engine build: an engine holds its leaf by
+    proxy and the cache holds each segment and live mask by weak
+    reference."""
+    import gc
+    import weakref
+
+    from rucene_tpu_torch.search import phrase_path
+
+    if not native_available:
+        pytest.skip("the scalar engine needs the native library")
+    texts, words = corpus
+    w = _write(tmp_path, texts)
+    rows = _rows(T, "phrase_scalar", words)
+    METRICS.reset()
+    s1 = T.IndexSearcher(w.get_reader(), device="cpu")
+    before = s1.search_batch(rows, k=K_ALL)
+    assert _count("search.phrase_scalar_route") > 0
+    old = [weakref.ref(lf.packed) for lf in s1.reader.leaves]
+    assert len(old) > 1
+    held = {id(seg) for (seg, _live), _k, _v in phrase_path._SCALAR_ENGINE_CACHE.items()}
+    assert all(id(o()) in held for o in old)
+    w.force_merge(1)
+    s2 = T.IndexSearcher(w.get_reader(), device="cpu")
+    del s1
+    gc.collect()
+    assert all(o() is None for o in old)
+    after = s2.search_batch(rows, k=K_ALL)  # builds the merged segment's engine
+    assert all(seg is not None for (seg, _live), _k, _v in phrase_path._SCALAR_ENGINE_CACHE.items())
+    merged = id(s2.reader.leaves[0].packed)
+    assert any(id(seg) == merged for (seg, _live), _k, _v in phrase_path._SCALAR_ENGINE_CACHE.items())
     assert [td.total_hits for td in after] == [td.total_hits for td in before]
     w.close()

@@ -304,7 +304,8 @@ def test_refresh_builds_new_leaves_only(corpus, tmp_path, monkeypatch):
     assert len(s0.reader.leaves) == 1
     assert s0.prewarm_phrase_planes("body", min_blocks=1) > 0
     base = s0.reader.leaves[0]
-    form, planes = base._forms[base.torch_device], dict(phrase_path._PLANE_CACHE)
+    form = base._forms[base.torch_device]
+    planes = list(phrase_path._PLANE_CACHE.items())
     builds, plane_builds = (METRICS.snapshot()["counters"].get(n, 0) for n in
                             ("reader.device_builds", "search.phrase_plane_build"))
     names = {base.name}
@@ -324,8 +325,8 @@ def test_refresh_builds_new_leaves_only(corpus, tmp_path, monkeypatch):
     assert counters.get("search.phrase_plane_build", 0) == plane_builds
     s = mgr.acquire()
     assert s.search_batch([T.PhraseQuery("body", ["w0", "w1"])], k=5)[0].total_hits > 0
-    for key, ent in planes.items():
-        assert phrase_path._PLANE_CACHE.get(key) is ent
+    for seg, key, ent in planes:
+        assert phrase_path._PLANE_CACHE.peek(seg, key) is ent
     w.close()
 
 

@@ -288,7 +288,7 @@ def test_rank_cache_pins_no_merged_segment(tmp_path):
     gc.collect()
     assert all(o() is None for o in old)
     s2.search_sorted(T.TermQuery(T.Term("body", "the")), 5, sort)
-    assert all(all(r() is not None for r in refs) for _v, refs in sorted_path._RANK_CACHE.values())
+    assert all(all(p is not None for p in segs) for segs, _k, _v in sorted_path._RANK_CACHE.items())
     w.close()
 
 

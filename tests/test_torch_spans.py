@@ -218,8 +218,9 @@ def test_group_planes_keyed_by_device():
     other._device = cpu_leaf.device
     moved, _ = port._group_plane_for(other, "body", members)
     assert moved is not gp and torch.equal(moved, gp)
-    keys = [k for k in phrase_path._PLANE_CACHE if k[:2] == phrase_path._seg_key(cpu_leaf)]
-    assert any(k[3] == ("or", "w0", "w3") for k in keys)
+    keys = [k for (seg,), k, _v in phrase_path._PLANE_CACHE.items()
+            if seg is cpu_leaf.packed and k[0] == str(cpu_leaf.torch_device)]
+    assert any(k[2] == ("or", "w0", "w3") for k in keys)
 
 
 def test_group_planes_released_with_their_segment(tmp_path):
@@ -237,8 +238,8 @@ def test_group_planes_released_with_their_segment(tmp_path):
     old = [weakref.ref(lf.packed) for lf in s1.reader.leaves]
     assert len(old) > 1
     assert any(
-        isinstance(k[3], tuple) and ref() is o()
-        for k, (_p, _o, ref) in phrase_path._PLANE_CACHE.items() for o in old
+        isinstance(k[2], tuple) and seg is o()
+        for (seg,), k, _v in phrase_path._PLANE_CACHE.items() for o in old
     )
     w.force_merge(1)
     s2 = T.IndexSearcher(w.get_reader(), device="cpu")
@@ -246,7 +247,7 @@ def test_group_planes_released_with_their_segment(tmp_path):
     gc.collect()
     after = s2.search_batch(rows, K)  # builds the merged segment's planes
     assert all(o() is None for o in old)
-    assert all(ref() is not None for _p, _o, ref in phrase_path._PLANE_CACHE.values())
+    assert all(seg is not None for (seg,), _k, _v in phrase_path._PLANE_CACHE.items())
     assert [td.total_hits for td in after] == [td.total_hits for td in before]
     w.close()
 
