@@ -63,7 +63,12 @@ Builds the CUDA kernels and the native library from this checkout, then:
      largest ordered-sum call of phase 10's score-combine batch on the
      packed reader (the flat executor's candidate groups;
      ordered_sum_replay) against its plain version (a CPU index_add_),
-     bit for bit, timed beside both and one torch.segment_reduce;
+     bit for bit, timed beside both and one torch.segment_reduce; then a
+     serving call's plane build on the decoded reader (plane_build_replay:
+     20 resident misses of under 64 blocks in one build_position_planes
+     call, csrc/phrase_plane.cu) against its twin, 20 per-term
+     build_position_plane calls, bit for bit, timed on the device and on
+     the host's clock, the kernel alone under the profiler;
  10. mixed rows and score-combine rows on both readers
      (serve_combine_rows): 256 mixed rows (an exact bigram from the
      first 5,000 docs, MUST or FILTER, beside 1-2 term clauses of the
@@ -167,7 +172,9 @@ The kernels' rows: K1 (decode_blocks), K2 (decode_score_blocks), K3
 (combine_lanes) and the port's own ordered-sum kernel
 (segment_sum_ordered, csrc/ordered_sum.cu), each with its launches summed
 over the phases' main-path runs; a kernel that never launched fails the
-run. Each kernel's bound is the bytes it must move at the replayed shape (its
+run. The plane-build kernel's row (build_position_planes,
+csrc/phrase_plane.cu) counts the decoded reader's prewarm and mix (phases
+3-4), where it must launch. Each kernel's bound is the bytes it must move at the replayed shape (its
 wrapper module's min_bytes) over the card's 3.35 TB/s. Kernel times are
 the mean of back-to-back runs over rotating copies of their inputs (cold
 L2), enqueued behind a sleep so that host launch time is not counted
@@ -180,7 +187,8 @@ filter_planes and host_rows, phase 13's figures under ``query_surface``,
 phase 14's under ``sharded`` with its launches under ``sharded_launches``,
 phase 15's under ``drivers`` and ``drivers_launches``, phase 16's under
 ``topk``, ``pruning``, ``sum_order`` and ``pruning_launches``, phase 9's
-ordered-sum replay under ``ordered_sum``, and phase 12's figures under
+ordered-sum replay under ``ordered_sum`` and plane-build replay under
+``plane_build``, and phase 12's figures under
 ``nrt`` with its launches under ``nrt_launches``), the card's name and
 power limit, and the device line.
 """
@@ -214,6 +222,7 @@ K1_SOURCE = "rucene_tpu_torch/csrc/decode.cu"
 K2_SOURCE = K1_SOURCE
 K3_SOURCE = "rucene_tpu_torch/csrc/combine.cu"
 K4_SOURCE = "rucene_tpu_torch/csrc/ordered_sum.cu"
+K5_SOURCE = "rucene_tpu_torch/csrc/phrase_plane.cu"
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM device memory, 3.35 TB/s
 FIELDS_SEED = 23  # pack_corpus: the ts / tag / doc-value fields of phases 10-14
 
@@ -3032,6 +3041,79 @@ def ordered_sum_replay(searcher, batch) -> dict:
     return out
 
 
+PLANE_MISSES = 20  # the plane-build replay's misses, as a serving call builds them
+
+
+def plane_build_replay(searcher) -> dict:
+    """A serving call's plane build, replayed on ``searcher``'s leaf:
+    PLANE_MISSES resident terms of under 64 blocks (those a batch builds on
+    a miss; the prewarm holds the larger ones) built by one
+    build_position_planes call, bit-equal to the twin (build_position_plane
+    a term on the card, the per-term path before the kernel). Timed: the
+    whole call and the twin's 20 builds on the device (cuda_ms) and on the
+    host's clock (enqueue, no wait), and the kernel alone under the
+    profiler, beside the kernel's byte bound (ops/phrase_plane.min_bytes)."""
+    from rucene_tpu_torch.ops import phrase_plane
+    from rucene_tpu_torch.search import phrase_path
+
+    leaf = searcher.reader.leaves[0]
+    pf = leaf.packed.fields["body"]
+    ordered, _res = searcher._plane_resident_terms(leaf, "body")
+    small = [t for t in ordered if int(pf.block_count[pf.term_ord[t]]) < 64]
+    names = [small[int(i)] for i in np.linspace(0, len(small) - 1, PLANE_MISSES)]
+    terms = [phrase_path.plane_term(leaf, leaf.term_record("body", t)) for t in names]
+    words = searcher._plane_words(leaf, "body")
+    dev = leaf.device
+
+    uploaded = [torch.from_numpy(b).to(dev.device) for b, *_ in terms]
+
+    def per_term(dev, terms, words, uploaded=uploaded):
+        return [phrase_plane.build_position_plane(dev, blk, w, s, words=words, fwin=f)
+                for blk, (_b, w, s, f) in zip(uploaded, terms)]
+
+    def old_path(dev, terms, words):  # each miss uploaded, then built
+        return per_term(dev, terms, words, [torch.from_numpy(b).to(dev.device) for b, *_ in terms])
+
+    def host_ms(fn, reps=10):
+        fn(dev, terms, words)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn(dev, terms, words)
+        took = (time.perf_counter() - t) * 1e3 / reps
+        torch.cuda.synchronize()
+        return took
+
+    got = phrase_plane.build_position_planes(dev, terms, words)
+    want = per_term(dev, terms, words)
+    torch.cuda.synchronize()
+    for t, (gp, go), (wp, wo) in zip(names, got, want):
+        if not (torch.equal(gp, wp) and torch.equal(go, wo)):
+            raise AssertionError(f"the plane-build kernel differs from its twin on {t!r}")
+    _ms, _busy, top = profile_fn(lambda: phrase_plane.build_position_planes(dev, terms, words),
+                                 passes=5, top=40)
+    kernel = [ms for name, ms in top if "build_position_planes_kernel" in name]
+    if not kernel:
+        raise AssertionError("no build_position_planes_kernel in the profiler's kernels")
+    n_bytes = phrase_plane.min_bytes(dev, terms, got)
+    out = {
+        "terms": len(terms), "blocks": int(sum(len(b) for b, *_ in terms)), "words": words,
+        "max_abs_err": 0.0, "kernel_ms": kernel[0],
+        "ms": cuda_ms(phrase_plane.build_position_planes, (dev, terms, words), reps=10, copies=1),
+        "plain_ms": cuda_ms(per_term, (dev, terms, words), reps=3, copies=1),
+        "host_ms": host_ms(phrase_plane.build_position_planes), "plain_host_ms": host_ms(old_path),
+        "bytes": n_bytes, "bound_ms": bound_ms(n_bytes),
+    }
+    log(f"plane-build kernel bit-equal to its twin over {out['terms']} misses ({out['blocks']} "
+        f"blocks, {words} words a doc): kernel {out['kernel_ms']:.4f} ms, whole call "
+        f"{out['ms']:.4f} ms on the device and {out['host_ms']:.3f} ms on the host; "
+        f"{len(terms)} per-term builds {out['plain_ms']:.4f} ms on the device and "
+        f"{out['plain_host_ms']:.3f} ms on the host, uploads included; the kernel must move "
+        f"{n_bytes} bytes, "
+        f"bound {out['bound_ms']:.5f} ms")
+    return out
+
+
 def single_k2_call(searcher, batch):
     """The scoring decode call the searcher makes for ``batch``'s single-term
     rows on its packed leaf: (data, off, dbits, fbits, base, count, fid,
@@ -3199,6 +3281,7 @@ def main() -> int:
     )
     from rucene_tpu_torch.index.reader import IndexReader, SegmentSnapshot
     from rucene_tpu_torch.ops import cuda_build, cuda_combine, cuda_decode
+    from rucene_tpu_torch.ops import phrase_plane as phrase_plane_ops
     from rucene_tpu_torch.search import phrase_path
     from rucene_tpu_torch.search import searcher as searcher_mod
     from rucene_tpu_torch.util.metrics import METRICS
@@ -3334,6 +3417,9 @@ def main() -> int:
     ))
     if launches["decode_blocks"] <= 0:
         raise AssertionError("kernel decode_blocks never launched on the decoded path")
+    plane_launches = counters.get(phrase_plane_ops.LAUNCH_COUNTER, 0)
+    if n_planes and plane_launches <= 0:
+        raise AssertionError("the plane-build kernel never launched on the decoded path")
     if split and counters.get("route.single", 0) <= 0:
         raise AssertionError("no mix row took the single-term route on the decoded reader")
 
@@ -3457,6 +3543,9 @@ def main() -> int:
     # call against its plain version (a CPU index_add_) and
     # torch.segment_reduce
     k4 = ordered_sum_replay(packed_searcher, extras_q)
+    # then a serving call's plane build on the decoded reader against its
+    # twin, the per-term builds
+    k5 = plane_build_replay(searcher)
 
     # 10. mixed phrase rows and score-combine rows on both readers
     p10 = serve_combine_rows(
@@ -3543,6 +3632,12 @@ def main() -> int:
          "launches": total["segment_sum_ordered"], "max_abs_err": k4["max_abs_err"],
          "ms": k4["ms"], "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
          "bound_by": "bytes", "library_ms": k4["library_ms"]},
+        {"name": "build_position_planes", "route": "cuda", "source": K5_SOURCE,
+         "replaces": "none: the port's own kernel (a leaf's missing position planes in one "
+                     "pass, where the reference builds each with XLA ops)",
+         "launches": plane_launches, "max_abs_err": k5["max_abs_err"],
+         "ms": k5["kernel_ms"], "plain_ms": k5["plain_ms"], "bound_ms": k5["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ], "qps": qps, "packed_qps": packed_qps, "qps_no_phrase": qps_no_phrase,
         "n_docs": n_docs, "n_phrase_rows": n_phrase, "prewarm_planes": n_planes,
         "prewarm_s": prewarm_s, "plane_mib": plane_mib, "mix_peak_gib": mix_peak,
@@ -3562,7 +3657,7 @@ def main() -> int:
         "nrt": p12, "nrt_launches": nrt_launches, "sharded": p14,
         "sharded_launches": p14_launches, "drivers": p15, "drivers_launches": p15_launches,
         "topk": p16["topk"], "pruning": p16["pruning"], "pruning_launches": p16_launches,
-        "sum_order": p16["sum_order"], "ordered_sum": k4}))
+        "sum_order": p16["sum_order"], "ordered_sum": k4, "plane_build": k5}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

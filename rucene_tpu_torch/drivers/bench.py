@@ -64,7 +64,7 @@ DEFAULT_CACHE = os.path.join(tempfile.gettempdir(), "rtpu_bench_cache")
 ROUTE_KEYS = (
     "route.device", "route.phrase", "route.synonym", "route.host",
     "search.phrase_host_fallback", "search.phrase_plane_build",
-    "search.phrase_plane_denied", "search.conj_pruned_blocks", "search.pruned_blocks",
+    "search.phrase_plane_build_calls", "search.phrase_plane_denied", "search.conj_pruned_blocks", "search.pruned_blocks",
     "search.auto_prune_batches",
 )
 

@@ -31,6 +31,8 @@ _SIGNATURES = {
     "rtt_decode_score_blocks": [_P] * 11 + [ctypes.c_int64, _P],
     "rtt_combine_lanes": [_P] * 8 + [ctypes.c_int] * 3 + [ctypes.c_int64, _P],
     "rtt_segment_sum_ordered": [_P] * 4 + [ctypes.c_int64, _P],
+    "rtt_build_position_planes": [_P] * 7 + [ctypes.c_int64] + [_P] * 2
+    + [ctypes.c_int64, ctypes.c_int, ctypes.c_int64, ctypes.c_int, _P],
 }
 
 

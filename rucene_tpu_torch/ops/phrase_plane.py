@@ -32,6 +32,11 @@ tables; on a decoded leaf they are row gathers of the resident planes
 plain chunk loop. Left out: ``MAX_BUILD_ITEMS`` and its slicing in the
 caller (a TPU worker fault), and the pow2 work padding.
 
+``build_position_planes`` builds many terms' planes of one leaf at once:
+on a card one work list over all their blocks, one ``work_lanes`` call and
+one launch of csrc/phrase_plane.cu (counter ``kernel.build_position_planes``);
+on the CPU its twin, ``build_position_plane`` a term.
+
 ``phrase_plane_search`` is the reference's single-row function, a one-row
 call of ``phrase_plane_search_many``.
 
@@ -48,6 +53,7 @@ import torch
 from rucene_tpu_torch.ops import cuda_decode
 from rucene_tpu_torch.ops.decode import INVALID_DOC
 from rucene_tpu_torch.ops.topk import DOC_PAD, topk_score_doc
+from rucene_tpu_torch.util.metrics import METRICS
 from rucene_tpu_torch.util.packing import BLOCK_SIZE
 
 PMAX = 128  # positions per doc covered by a full-width plane (4 words)
@@ -58,6 +64,9 @@ FMAX = 64
 # work items per build step: bounds the [C, 128, fwin] int64 temporaries
 # (268 MB each at fwin = FMAX)
 BUILD_CHUNK = 4096
+LAUNCH_COUNTER = "kernel.build_position_planes"
+# work items per kernel launch: bounds its lanes (12 bytes each, 50 MB)
+LAUNCH_ITEMS = 32768
 
 _U32 = 0xFFFFFFFF
 _SIGN_OFF = 0x7FFFFFFFFFFFFFFF
@@ -139,6 +148,93 @@ def build_position_plane(
         bitval = torch.where(on, torch.ones_like(pwin) << (pwin & 31), 0).to(torch.int32)  # bit 31 wraps
         plane.index_add_(0, word_idx.reshape(-1), bitval.reshape(-1))
     return plane[: md * words].view(md, words), overflow[:md]
+
+
+def plane_work_items(terms) -> np.ndarray:
+    """The work list of a build of ``terms`` ((blocks, pos_width,
+    pos_word_start, fwin) each), over their blocks end to end: int64[4, W]
+    rows block id, target plane (the term's index), delta width and the
+    word where the term's stream starts."""
+    sizes = np.array([len(t[0]) for t in terms], np.int64)
+    items = np.empty((4, int(sizes.sum())), np.int64)
+    if items.shape[1]:
+        items[0] = np.concatenate([np.asarray(t[0], np.int64) for t in terms])
+    items[1] = np.repeat(np.arange(len(terms)), sizes)
+    items[2] = np.repeat(np.array([t[1] for t in terms], np.int64), sizes)
+    items[3] = np.repeat(np.array([t[2] for t in terms], np.int64), sizes)
+    return items
+
+
+def build_position_planes(dev, terms, words: int = WORDS) -> list:
+    """-> [(plane i32[md, words], overflow bool[md])], a pair of tensors of
+    its own for each of ``terms`` ((blocks int[W_t], pos_width,
+    pos_word_start, fwin) each, build_position_plane's arguments).
+
+    A CPU leaf runs the twin, build_position_plane a term. On a card: the
+    zeroed pairs, one upload of the work list (plane_work_items) and the
+    pairs' pointers, then a work_lanes call and a launch of
+    csrc/phrase_plane.cu a LAUNCH_ITEMS items; nothing waits for the
+    device. The kernel reads min(freq, FMAX) occurrences a lane whatever
+    fwin says, so it equals the twin where fwin covers each block's freqs
+    up to FMAX, as callers pass it."""
+    d = dev.device
+    md = dev.max_doc_padded
+    if d.type == "cpu":
+        return [
+            build_position_plane(dev, torch.from_numpy(np.asarray(b, np.int64)), width, start,
+                                 words=words, fwin=fwin)
+            for b, width, start, fwin in terms
+        ]
+    if d.type != "cuda":
+        raise ValueError(f"build_position_planes: unsupported device {d}")
+    pos = dev.positions
+    if pos is None or pos.device != d or pos.dtype != torch.int32 or pos.dim() != 1:
+        raise ValueError("build_position_planes: the leaf's positions must be int32[P] on its device")
+    if not 1 <= words <= WORDS or any(not 0 <= t[1] <= 32 for t in terms):
+        raise ValueError("build_position_planes: words in 1-4 and delta widths in 0-32")
+    from rucene_tpu_torch.ops.cuda_build import check, kernels
+
+    out = [(torch.zeros((md, words), dtype=torch.int32, device=d),
+            torch.zeros(md, dtype=torch.bool, device=d)) for _ in terms]
+    items = plane_work_items(terms)
+    n, n_t = items.shape[1], len(terms)
+    if n == 0:
+        return out
+    ptrs = [p.data_ptr() for p, _ in out] + [o.data_ptr() for _, o in out]
+    up = torch.from_numpy(np.concatenate([items.reshape(-1), np.array(ptrs, np.int64)]))
+    up = up.pin_memory().to(d, non_blocking=True)
+    tab = up[: 4 * n].view(4, n)
+    blk = tab[0]
+    count, pos_base = dev.blk_count[blk], dev.blk_pos_base[blk]
+    lib = kernels()
+    stream = torch.cuda.current_stream(d).cuda_stream
+    for s in range(0, n, LAUNCH_ITEMS):
+        e = min(n, s + LAUNCH_ITEMS)
+        docs, freqs, _valid = work_lanes(dev, blk[s:e], count[s:e])  # i32 and i64 [W, 128]
+        rc = lib.rtt_build_position_planes(
+            docs.data_ptr(), freqs.data_ptr(), tab[1, s:e].data_ptr(), pos_base[s:e].data_ptr(),
+            tab[2, s:e].data_ptr(), tab[3, s:e].data_ptr(), pos.data_ptr(), pos.shape[0] - 1,
+            up[4 * n :].data_ptr(), up[4 * n + n_t :].data_ptr(), e - s, words, md, FMAX, stream,
+        )
+        check(rc, "rtt_build_position_planes")
+        METRICS.incr(LAUNCH_COUNTER)
+    return out
+
+
+def min_bytes(dev, terms, planes) -> int:
+    """Device-memory bytes a build of ``terms`` must move: each work item's
+    lanes (a 4-byte doc and an 8-byte freq) and table entries (28 bytes)
+    read once, the delta bits of each lane's first FMAX occurrences read
+    once, and each plane word and overflow byte that ends non-zero written
+    once (``planes``: the build's result). The zeroed pairs are the
+    allocator's and not counted."""
+    items = plane_work_items(terms)
+    blk = torch.from_numpy(items[0]).to(dev.device)
+    _docs, freqs, _valid = work_lanes(dev, blk, dev.blk_count[blk])
+    width = torch.from_numpy(items[2]).to(dev.device)
+    delta_bits = int((freqs.clamp(max=FMAX).sum(1) * width).sum())
+    written = sum(int((p != 0).sum()) * 4 + int(o.sum()) for p, o in planes)
+    return items.shape[1] * (BLOCK_SIZE * 12 + 28) + (delta_bits + 7) // 8 + written
 
 
 def _shift_right(plane: torch.Tensor, j: int) -> torch.Tensor:

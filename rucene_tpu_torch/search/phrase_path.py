@@ -24,6 +24,7 @@ does; no row is answered approximately.
 
 Counters (rows unless named): ``search.phrase_device``,
 ``search.phrase_plane``, ``search.phrase_plane_build`` (planes built),
+``search.phrase_plane_build_calls`` (the batched builds that built them),
 ``search.phrase_plane_denied`` (plane fetches refused by admission),
 ``search.phrase_scalar_route``, ``search.phrase_host_fallback`` (rows the
 scalar engine or the host engine took after a device route declined
@@ -41,8 +42,8 @@ block selection and routing, with ``search.phrases.postings`` around the
 selections the memo lacks: their host tables, the one device pass and its
 wait), ``search.phrases.launch`` (the candidate tables' uploads and
 pipeline, the plane dispatch, and in collect the plane retry of overflow
-rows; ``search.phrases.plane_build`` around a plane built on a cache
-miss, whichever path asks), ``search.phrases.scalar``
+rows; ``search.phrases.plane_build`` around the planes a fetch misses,
+built in one pass, whichever path asks), ``search.phrases.scalar``
 (each scalar-engine call), ``search.phrases.wait`` (the copies of the
 candidate and plane results) and ``search.phrases.merge`` (the rows' hit
 lists). ``search.prewarm_planes`` times prewarm_phrase_planes. The mixed
@@ -103,6 +104,17 @@ def _plane_at(leaf, key: tuple) -> tuple:
 def _plane_put(leaf, key: tuple, plane, overflow, budget: int | None):
     nbytes = plane.nbytes + (0 if overflow is None else overflow.nbytes)
     return _PLANE_CACHE.put(*_plane_at(leaf, key), (plane, overflow), nbytes, budget)
+
+
+def plane_term(leaf, rec) -> tuple:
+    """ops/phrase_plane.build_position_planes' argument for the term record
+    ``rec`` of ``leaf``: (its block ids, delta width, first stream word,
+    fwin: its blocks' largest freq, at most FMAX)."""
+    from rucene_tpu_torch.ops.phrase_plane import FMAX
+
+    blocks = np.arange(rec.block_start, rec.block_start + rec.block_count)
+    fwin = min(FMAX, max(int(leaf.packed.blk_max_freq[blocks].max()), 1)) if len(blocks) else 1
+    return blocks, rec.pos_width, rec.pos_word_start, fwin
 
 
 def _idf_weight(sim, stats, doc_freqs, field, terms, boost) -> np.float32:
@@ -637,48 +649,28 @@ class PhrasePathMixin:
         return True
 
     def _phrase_plane_for(self, leaf, field: str, term: str):
-        """Device-cached (plane, overflow) for one term, LRU-bounded by the
-        plane budget (evicting before the build, so a new plane never
-        stacks on a full cache). None for an absent term."""
-        from rucene_tpu_torch.ops.phrase_plane import FMAX, build_position_plane
-
-        got = _PLANE_CACHE.get(*_plane_at(leaf, (field, term)))
-        if got is not None:
-            return got
-        rec = leaf.term_record(field, term)
-        if rec is None:
-            return None
-        with trace("search.phrases.plane_build"):
-            blocks = np.arange(rec.block_start, rec.block_start + rec.block_count, dtype=np.int32)
-            budget = self._plane_budget_bytes(leaf)
-            p_words = self._plane_words(leaf, field)
-            new_bytes = leaf.device.max_doc_padded * (p_words * 4 + 1)  # plane + overflow
-            _PLANE_CACHE.make_room(budget, new_bytes)
-            fwin = (min(FMAX, max(int(leaf.packed.blk_max_freq[blocks].max()), 1))
-                    if len(blocks) else 1)
-            plane, overflow = build_position_plane(
-                leaf.device, _put(blocks, leaf.torch_device), rec.pos_width,
-                rec.pos_word_start, words=p_words, fwin=fwin,
-            )
-            METRICS.incr("search.phrase_plane_build")
-            return _plane_put(leaf, (field, term), plane, overflow, budget)
+        """Device-cached (plane, overflow) for one term (a one-want
+        _phrase_planes_for_many); None for an absent term."""
+        return self._phrase_planes_for_many(leaf, [(field, term)])[(field, term)]
 
     def _phrase_planes_for_many(self, leaf, wants, admit: bool = False):
         """(plane, overflow) for many (field, term) pairs: cache hits at
-        once, misses built one after another (each build's launches queue
-        behind the last). Returns dict[(field, term)] -> (plane, overflow)
-        | None (absent term) | False (admit=True and the term is outside
-        the resident set: the caller routes the row elsewhere)."""
+        once, then every miss built in one pass (_build_planes). Returns
+        dict[(field, term)] -> (plane, overflow) | None (absent term) |
+        False (admit=True and the term is outside the resident set: the
+        caller routes the row elsewhere)."""
         out: dict = {}
+        misses: dict = {}  # (field, term) -> its term record
         for field, term in wants:
             fkey = (field, term)
-            if fkey in out:
+            if fkey in out or fkey in misses:
                 continue
             got = _PLANE_CACHE.get(*_plane_at(leaf, fkey))
             if got is not None:
                 out[fkey] = got
                 continue
-            if leaf.term_record(field, term) is None:
+            rec = leaf.term_record(field, term)
+            if rec is None:
                 out[fkey] = None
                 continue
             if (
@@ -689,7 +681,42 @@ class PhrasePathMixin:
                 out[fkey] = False  # denied: would thrash the cache
                 METRICS.incr("search.phrase_plane_denied")
                 continue
-            out[fkey] = self._phrase_plane_for(leaf, field, term)
+            misses[fkey] = rec
+        if misses:
+            out.update(self._build_planes(leaf, misses))
+        return out
+
+    def _build_planes(self, leaf, misses: dict) -> dict:
+        """Build the position planes of ``misses`` ((field, term) -> term
+        record) and put each in the cache under its key: one
+        ops/phrase_plane.build_position_planes call a field and chunk of
+        at most a quarter of the plane budget, room made in the cache
+        before each (so new planes never stack on a full cache). Counts
+        planes (``search.phrase_plane_build``) and calls
+        (``search.phrase_plane_build_calls``). Returns dict[(field, term)]
+        -> (plane, overflow)."""
+        from rucene_tpu_torch.ops.phrase_plane import build_position_planes
+
+        budget = self._plane_budget_bytes(leaf)
+        mdp = leaf.device.max_doc_padded
+        by_field: dict = {}
+        for fkey, rec in misses.items():
+            by_field.setdefault(fkey[0], []).append((fkey, rec))
+        out: dict = {}
+        with trace("search.phrases.plane_build"):
+            for field, todo in by_field.items():
+                p_words = self._plane_words(leaf, field)
+                plane_bytes = mdp * (p_words * 4 + 1)  # plane + overflow
+                per_call = max(1, (budget // 4) // plane_bytes)
+                for c0 in range(0, len(todo), per_call):
+                    part = todo[c0 : c0 + per_call]
+                    _PLANE_CACHE.make_room(budget, plane_bytes * len(part))
+                    terms = [plane_term(leaf, rec) for _fkey, rec in part]
+                    built = build_position_planes(leaf.device, terms, p_words)
+                    METRICS.incr("search.phrase_plane_build", len(part))
+                    METRICS.incr("search.phrase_plane_build_calls")
+                    for (fkey, _rec), (plane, overflow) in zip(part, built):
+                        out[fkey] = _plane_put(leaf, fkey, plane, overflow, budget)
         return out
 
     def prewarm_phrase_planes(self, field: str = "body", min_blocks: int | None = None) -> int:
@@ -1000,9 +1027,10 @@ class PhrasePathMixin:
         got = _PLANE_CACHE.get(*_plane_at(leaf, key))
         if got is not None:
             return got
+        subs = self._phrase_planes_for_many(leaf, [(field, t) for t in members])
         gp = go = None
         for t in members:
-            sub = self._phrase_plane_for(leaf, field, t)
+            sub = subs[(field, t)]
             if sub is None:
                 continue  # an absent member adds nothing to the union
             gp = sub[0] if gp is None else (gp | sub[0])
