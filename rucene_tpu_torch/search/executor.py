@@ -291,7 +291,9 @@ def _combine_dense(q, target, sc, valid, b, md, combine):
     32-row chunk (reading the items' lanes in place), then the sparse
     residue items pass by pass, each pass's lanes added to distinct slots
     with a gather and a put, so a slot's residue lanes add in item order
-    after the kernel's sum."""
+    after the kernel's sum. Counts the branch's work items' lanes once a
+    call (search.dense_lanes, items x 128)."""
+    METRICS.incr("search.dense_lanes", target.numel())
     trash = b * md  # one spare slot takes every out-of-range lane
     acc_s = torch.empty(trash + 1, dtype=torch.float32, device=sc.device)
     acc_c = torch.empty(trash + 1, dtype=torch.int32, device=sc.device)

@@ -16,6 +16,8 @@ Counters in use:
   combine's entries and residue items (flat_tables.build_combine_batch);
 - ``search.strategy.dense`` / ``search.strategy.candidate``: executor calls
   per branch;
+- ``search.dense_lanes``: the dense branch's work items x 128, once a
+  call (search/executor._combine_dense);
 - ``kernel.<name>``: launches of a CUDA kernel, counted by its wrapper
   right where it launches (never for the CPU twin);
 - ``reader.device_builds``: device forms built for a segment on a device

@@ -32,12 +32,17 @@ from rucene_tpu_torch.util import round_up
 
 GIB = 1 << 30
 MS_MARCO_DOCS = 8_841_823
+# the segment's own tensors at 8,841,823 docs in one segment, before its
+# tf planes, as read on an H100 (portbench's zipf8m: 2,719,472 blocks
+# decoded, norms, positions, block tables)
+OWN_AT_8M = 2_963_748_572
 
 # (docs, the segment's own bytes) -> (phrase budget, tf budget, resident
 # planes at 2 words, at 4 words)
 PINNED = {
     (1_000_000, 4 * GIB): (16 * GIB, 8 * GIB, 1431, 757),
     (1_000_000, 32 * GIB): (16 * GIB, 8 * GIB, 1431, 757),
+    (MS_MARCO_DOCS, OWN_AT_8M): (16 * GIB, 8 * GIB, 161, 85),
     (MS_MARCO_DOCS, 4 * GIB): (16 * GIB, 8 * GIB, 161, 85),
     (MS_MARCO_DOCS, 12 * GIB): (13_871_087_616, 5_281_153_024, 130, 69),
     (MS_MARCO_DOCS, 32 * GIB): (3_133_669_376, 0, 29, 15),

@@ -283,6 +283,7 @@ def test_plane_row_chunk():
     assert plane_path.plane_row_chunk(256, 1024) == 256
     rows = plane_path.PLANE_CHUNK_BYTES // (per * 1_000_448)
     assert plane_path.plane_row_chunk(256, 1_000_448) == min(256, rows)
+    assert plane_path.plane_row_chunk(256, 8_842_240) == 16  # 8,841,823 docs
     assert plane_path.plane_row_chunk(256, 1 << 40) == 1
 
 
